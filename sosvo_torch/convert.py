@@ -1,0 +1,75 @@
+"""Turn the JAX package's objects, as numpy arrays, into the port's.
+
+Used by the parity tests so both packages compute on the same calibration
+and inputs; this module imports neither jax nor `sosvo` (it reads fields by
+name). Descriptors are uint32 in the reference and int32 bit patterns here:
+`desc_to_torch` views, never converts values.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sosvo_torch.sensor.model import ViewParams
+from sosvo_torch.sensor.rig import OmnistereoRig
+from sosvo_torch.synth.scene import FrameObservations
+from sosvo_torch.vo.state import TrackState
+
+
+def _t(x, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, copy=True), dtype=dtype, device=device)
+
+
+def desc_to_torch(desc, device: torch.device | str = "cpu") -> torch.Tensor:
+    """uint32 descriptor words -> int32 tensor with the same bits."""
+    return torch.as_tensor(np.ascontiguousarray(np.asarray(desc, np.uint32)).view(np.int32).copy(),
+                           device=device)
+
+
+def desc_to_numpy(desc: torch.Tensor) -> np.ndarray:
+    """int32 descriptor words -> the reference's uint32 layout."""
+    return desc.detach().cpu().numpy().view(np.uint32)
+
+
+def view_from_numpy(view, device: torch.device | str = "cpu") -> ViewParams:
+    return ViewParams(*(_t(getattr(view, f), device, torch.float32) for f in ViewParams._fields))
+
+
+def rig_from_numpy(rig, device: torch.device | str = "cpu") -> OmnistereoRig:
+    """An `OmnistereoRig`-shaped object (numpy or jax leaves) -> the port's rig."""
+    return OmnistereoRig(top=view_from_numpy(rig.top, device),
+                         bottom=view_from_numpy(rig.bottom, device),
+                         baseline=_t(rig.baseline, device, torch.float32),
+                         image_height=int(rig.image_height), image_width=int(rig.image_width))
+
+
+def observations_from_numpy(obs, device: torch.device | str = "cpu") -> FrameObservations:
+    """A `FrameObservations`-shaped object -> the port's (uint32 viewed as int32)."""
+    return FrameObservations(
+        uv_top=_t(obs.uv_top, device, torch.float32),
+        uv_bottom=_t(obs.uv_bottom, device, torch.float32),
+        ray_top=_t(obs.ray_top, device, torch.float32),
+        ray_bottom=_t(obs.ray_bottom, device, torch.float32),
+        desc_top=desc_to_torch(obs.desc_top, device),
+        desc_bottom=desc_to_torch(obs.desc_bottom, device),
+        valid_top=_t(obs.valid_top, device, torch.bool),
+        valid_bottom=_t(obs.valid_bottom, device, torch.bool),
+        lm_id=_t(obs.lm_id, device, torch.int32),
+    )
+
+
+def track_state_from_numpy(state, generator: torch.Generator,
+                           device: torch.device | str = "cpu") -> TrackState:
+    """A `TrackState`-shaped object -> the port's; the PRNG key is dropped and
+    `generator` takes its place."""
+    return TrackState(
+        T_world=_t(state.T_world, device, torch.float32),
+        prev_points=_t(state.prev_points, device, torch.float32),
+        prev_desc=desc_to_torch(state.prev_desc, device),
+        prev_rays=_t(state.prev_rays, device, torch.float32),
+        prev_azimuth=_t(state.prev_azimuth, device, torch.float32),
+        prev_valid=_t(state.prev_valid, device, torch.bool),
+        frame_idx=_t(state.frame_idx, device, torch.int32),
+        generator=generator,
+    )

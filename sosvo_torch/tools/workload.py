@@ -1,0 +1,84 @@
+"""The synthetic observation-mode workloads of chip_smoke.py and the tools.
+
+A workload is a config preset from `configs/` in observation mode, a scene
+and its per-frame observations at 0.3 px pixel noise and 2 % descriptor bit
+flips (bench.py's), all drawn from one seeded generator on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+from pathlib import Path
+
+import torch
+
+from sosvo_torch.sensor.rig import default_rig
+from sosvo_torch.synth.scene import make_scene, observe_sequence
+from sosvo_torch.utils.config import PipelineConfig, load_pipeline_config
+from sosvo_torch.vo.pipeline import run_replay
+from sosvo_torch.vo.state import init_track_state
+
+CONFIGS = Path(__file__).resolve().parents[2] / "configs"
+PIXEL_NOISE = 0.3
+DESC_FLIP = 0.02
+SEED = 0
+
+
+def load_preset(name: str) -> tuple[PipelineConfig, dict]:
+    """(config in observation mode, its "run" block) of configs/<name>.json."""
+    path = CONFIGS / f"{name}.json"
+    cfg = dataclasses.replace(load_pipeline_config(path), mode="observations")
+    return cfg, json.loads(path.read_text())["run"]
+
+
+def make_workload(cfg: PipelineConfig, n_frames: int, n_landmarks: int, device):
+    """(rig, scene, observations) drawn from SEED on `device`."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rig = default_rig(device=device)
+    scene = make_scene(gen, n_frames, n_landmarks, device=device)
+    obs = observe_sequence(rig, scene, cfg.frontend.max_features, gen,
+                           PIXEL_NOISE, DESC_FLIP)
+    return rig, scene, obs
+
+
+def replayer(cfg: PipelineConfig, rig, scene, obs, device):
+    """A function that replays the whole sequence from the same initial state
+    (RANSAC draws from SEED + 2) and returns (final state, stacked outputs)."""
+    def replay():
+        gen = torch.Generator(device=device).manual_seed(SEED + 2)
+        state = init_track_state(cfg.frontend.max_features, gen, T0=scene.poses[0],
+                                 device=device)
+        return run_replay(rig, cfg, state, obs)
+    return replay
+
+
+def require_cuda() -> torch.device:
+    """The first CUDA device; raises where there is none (no CPU fallback)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("this measurement needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def card_info() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call of `fn` over `reps` back-to-back calls (CUDA events),
+    after five warm-up calls."""
+    for _ in range(5):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

@@ -1,0 +1,31 @@
+"""The port imports without jax and without the JAX package.
+
+A fresh interpreter with `sys.modules["jax"] = None` (any `import jax` then
+raises) imports every module of `sosvo_torch`; none may pull in `sosvo`.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import sosvo_torch
+names = [m.name for m in pkgutil.walk_packages(sosvo_torch.__path__, "sosvo_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "sosvo" or m.startswith("sosvo.")
+             or (m.startswith("jax") and sys.modules[m] is not None))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every module was walked
