@@ -1,14 +1,17 @@
-"""Closed-form small solvers (counterpart of the first part of
-`sosvo/backend/schur.py`).
+"""Closed-form small solvers and the Schur-complement primitives of windowed
+BA (counterpart of `sosvo/backend/schur.py`, without landmark sharding).
 
-Only `inv3x3`, `solve6x6_spd` and `inv6x6_spd` are ported: the bearing
-refine needs them. The Schur reduction of bundle adjustment
-(`reduce_camera_system`, `back_substitute`) comes with the BA slice.
+`inv3x3` followed by `reduce_camera_system` is the plain version of the CUDA
+Schur-reduction kernel (`sosvo_torch/kernels/schur_cuda.py`): the wrapper
+runs that pair on CPU tensors, and `chip_smoke.py` holds the kernel against
+it on the card.
 """
 
 from __future__ import annotations
 
 import torch
+
+from sosvo_torch.geom.lie import se3_exp
 
 
 def inv3x3(M: torch.Tensor) -> torch.Tensor:
@@ -62,3 +65,48 @@ def inv6x6_spd(H: torch.Tensor) -> torch.Tensor:
     BL = TR.transpose(-1, -2)
     BR = Dinv - BDinv.transpose(-1, -2) @ TR
     return torch.cat([torch.cat([Sinv, TR], dim=-1), torch.cat([BL, BR], dim=-1)], dim=-2)
+
+
+def reduce_camera_system(H_cc: torch.Tensor, H_cl: torch.Tensor, H_ll_inv: torch.Tensor,
+                         b_c: torch.Tensor, b_l: torch.Tensor):
+    """Schur complement of the landmark blocks onto the camera system.
+
+        S[w, w'] = delta_ww' H_cc[w] - sum_l H_cl[w,l] H_ll_inv[l] H_cl[w',l]^T
+        b_red[w] = b_c[w] - sum_l H_cl[w,l] H_ll_inv[l] b_l[l]
+
+    H_cc (W, 6, 6) (already damped), H_cl (W, L, 6, 3), H_ll_inv (L, 3, 3),
+    b_c (W, 6), b_l (L, 3) -> S (W, W, 6, 6), b_red (W, 6).
+    """
+    return assemble_camera_system(H_cc, b_c, *schur_terms(H_cl, H_ll_inv, b_l))
+
+
+def schur_terms(H_cl: torch.Tensor, H_ll_inv: torch.Tensor, b_l: torch.Tensor):
+    """The landmark sums of `reduce_camera_system`: S_off (W, W, 6, 6) =
+    sum_l A[:, l] H_cl[:, l]^T and b_sub (W, 6) = sum_l A[:, l] b_l[l], with
+    A[w, l] = H_cl[w, l] H_ll_inv[l]."""
+    A = torch.einsum("wlij,ljk->wlik", H_cl, H_ll_inv)      # (W, L, 6, 3)
+    S_off = torch.einsum("wlik,vljk->wvij", A, H_cl)         # (W, W, 6, 6)
+    b_sub = torch.einsum("wlik,lk->wi", A, b_l)
+    return S_off, b_sub
+
+
+def assemble_camera_system(H_cc: torch.Tensor, b_c: torch.Tensor, S_off: torch.Tensor,
+                           b_sub: torch.Tensor):
+    """S = blockdiag(H_cc) - S_off (W, W, 6, 6) and b_red = b_c - b_sub (W, 6)."""
+    eye_w = torch.eye(H_cc.shape[0], dtype=H_cc.dtype, device=H_cc.device)
+    return eye_w[:, :, None, None] * H_cc[:, None] - S_off, b_c - b_sub
+
+
+def back_substitute(H_ll_inv: torch.Tensor, H_cl: torch.Tensor, b_l: torch.Tensor,
+                    delta_c: torch.Tensor) -> torch.Tensor:
+    """Per-landmark update given the pose solution (L, 3):
+
+        delta_l[l] = -H_ll_inv[l] (b_l[l] + sum_w H_cl[w,l]^T delta_c[w])
+    """
+    rhs = b_l + torch.einsum("wlij,wi->lj", H_cl, delta_c)
+    return -torch.einsum("lij,lj->li", H_ll_inv, rhs)
+
+
+def apply_pose_updates(X: torch.Tensor, delta_c: torch.Tensor) -> torch.Tensor:
+    """Left-retract each pose: X[w] <- exp(delta_c[w]) X[w]. (W, 4, 4)."""
+    return se3_exp(delta_c) @ X

@@ -1,9 +1,11 @@
 """Turn the JAX package's objects, as numpy arrays, into the port's.
 
-Used by the parity tests so both packages compute on the same calibration
-and inputs; this module imports neither jax nor `sosvo` (it reads fields by
-name). Descriptors are uint32 in the reference and int32 bit patterns here:
-`desc_to_torch` views, never converts values.
+Used by the parity tests so both packages compute on the same calibration,
+inputs and state; this module imports neither jax nor `sosvo` (it reads
+fields by name). Like every entry point, each function puts its tensors on
+the card unless the caller names another device. Descriptors are uint32 in
+the reference and int32 bit patterns here: `desc_to_torch` views, never
+converts values.
 """
 
 from __future__ import annotations
@@ -11,20 +13,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sosvo_torch.backend.ba import BAWindow
 from sosvo_torch.sensor.model import ViewParams
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
+from sosvo_torch.utils.device import resolve
+from sosvo_torch.vo.ba_pipeline import BAState
+from sosvo_torch.vo.keyframes import MapState
 from sosvo_torch.vo.state import TrackState
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(x, copy=True), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(x, copy=True), dtype=dtype, device=resolve(device))
 
 
-def desc_to_torch(desc, device: torch.device | str = "cpu") -> torch.Tensor:
+def desc_to_torch(desc, device: torch.device | str | None = None) -> torch.Tensor:
     """uint32 descriptor words -> int32 tensor with the same bits."""
     return torch.as_tensor(np.ascontiguousarray(np.asarray(desc, np.uint32)).view(np.int32).copy(),
-                           device=device)
+                           device=resolve(device))
 
 
 def desc_to_numpy(desc: torch.Tensor) -> np.ndarray:
@@ -32,11 +38,11 @@ def desc_to_numpy(desc: torch.Tensor) -> np.ndarray:
     return desc.detach().cpu().numpy().view(np.uint32)
 
 
-def view_from_numpy(view, device: torch.device | str = "cpu") -> ViewParams:
+def view_from_numpy(view, device: torch.device | str | None = None) -> ViewParams:
     return ViewParams(*(_t(getattr(view, f), device, torch.float32) for f in ViewParams._fields))
 
 
-def rig_from_numpy(rig, device: torch.device | str = "cpu") -> OmnistereoRig:
+def rig_from_numpy(rig, device: torch.device | str | None = None) -> OmnistereoRig:
     """An `OmnistereoRig`-shaped object (numpy or jax leaves) -> the port's rig."""
     return OmnistereoRig(top=view_from_numpy(rig.top, device),
                          bottom=view_from_numpy(rig.bottom, device),
@@ -44,7 +50,7 @@ def rig_from_numpy(rig, device: torch.device | str = "cpu") -> OmnistereoRig:
                          image_height=int(rig.image_height), image_width=int(rig.image_width))
 
 
-def observations_from_numpy(obs, device: torch.device | str = "cpu") -> FrameObservations:
+def observations_from_numpy(obs, device: torch.device | str | None = None) -> FrameObservations:
     """A `FrameObservations`-shaped object -> the port's (uint32 viewed as int32)."""
     return FrameObservations(
         uv_top=_t(obs.uv_top, device, torch.float32),
@@ -60,7 +66,7 @@ def observations_from_numpy(obs, device: torch.device | str = "cpu") -> FrameObs
 
 
 def track_state_from_numpy(state, generator: torch.Generator,
-                           device: torch.device | str = "cpu") -> TrackState:
+                           device: torch.device | str | None = None) -> TrackState:
     """A `TrackState`-shaped object -> the port's; the PRNG key is dropped and
     `generator` takes its place."""
     return TrackState(
@@ -73,3 +79,27 @@ def track_state_from_numpy(state, generator: torch.Generator,
         frame_idx=_t(state.frame_idx, device, torch.int32),
         generator=generator,
     )
+
+
+def map_state_from_numpy(m, device: torch.device | str | None = None) -> MapState:
+    """A `MapState`-shaped object -> the port's (descriptors viewed as int32)."""
+    f32, i32 = torch.float32, torch.int32
+    return MapState(
+        kf_X=_t(m.kf_X, device, f32), kf_valid=_t(m.kf_valid, device, torch.bool),
+        kf_frame=_t(m.kf_frame, device, i32), head=_t(m.head, device, i32),
+        n_kf=_t(m.n_kf, device, i32), lm_pos=_t(m.lm_pos, device, f32),
+        lm_desc=desc_to_torch(m.lm_desc, device), lm_valid=_t(m.lm_valid, device, torch.bool),
+        lm_last_seen=_t(m.lm_last_seen, device, i32), obs_rays=_t(m.obs_rays, device, f32),
+        obs_w=_t(m.obs_w, device, f32))
+
+
+def ba_state_from_numpy(state, generator: torch.Generator,
+                        device: torch.device | str | None = None) -> BAState:
+    """A `BAState`-shaped object -> the port's; `generator` replaces the key."""
+    return BAState(track=track_state_from_numpy(state.track, generator, device),
+                   map=map_state_from_numpy(state.map, device))
+
+
+def ba_window_from_numpy(win, device: torch.device | str | None = None) -> BAWindow:
+    """A `BAWindow`-shaped object -> the port's."""
+    return BAWindow(*(_t(getattr(win, f), device, torch.float32) for f in BAWindow._fields))

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from sosvo_torch.geom.lie import norm
+from sosvo_torch.utils.device import resolve
 
 UNDISTORT_ITERS = 8  # fixed-point iterations; exact when distortion is zero
 
@@ -40,7 +41,8 @@ class ViewParams(NamedTuple):
     @staticmethod
     def create(xi, fx, fy, cx, cy, min_elevation, max_elevation, z_offset=0.0,
                k1=0.0, k2=0.0, p1=0.0, p2=0.0, mis_rx=0.0, mis_ry=0.0,
-               device: torch.device | str = "cpu") -> "ViewParams":
+               device: torch.device | str | None = None) -> "ViewParams":
+        device = resolve(device)
         vals = (xi, fx, fy, cx, cy, min_elevation, max_elevation, z_offset,
                 k1, k2, p1, p2, mis_rx, mis_ry)
         return ViewParams(*(torch.as_tensor(v, dtype=torch.float32, device=device)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from sosvo_torch.sensor.model import ViewParams
+from sosvo_torch.utils.device import resolve
 
 
 class OmnistereoRig(NamedTuple):
@@ -32,8 +33,9 @@ def _deg2rad_f32(deg: float) -> np.float32:
 
 
 def default_rig(image_size: int = 768, baseline: float = 0.12,
-                device: torch.device | str = "cpu") -> OmnistereoRig:
+                device: torch.device | str | None = None) -> OmnistereoRig:
     """The reference's MAV-scale rig (~12 cm baseline), see `sosvo.sensor.rig`."""
+    device = resolve(device)
     c = image_size / 2.0 - 0.5
     s = image_size / 768.0
     top = ViewParams.create(

@@ -25,6 +25,7 @@ import torch
 from sosvo_torch.geom.lie import mat_inv, rt_to_mat, so3_exp, transform_points
 from sosvo_torch.sensor.model import lift, project, viewpoint
 from sosvo_torch.sensor.rig import OmnistereoRig
+from sosvo_torch.utils.device import resolve
 
 DESC_WORDS = 8  # 256-bit descriptors packed as 8 x 32-bit words
 
@@ -79,8 +80,9 @@ def as_int32_bits(x: torch.Tensor) -> torch.Tensor:
 
 def make_landmarks(gen: torch.Generator, n: int, r_min: float = 1.5, r_max: float = 6.0,
                    z_min: float = -1.5, z_max: float = 1.0,
-                   device: torch.device | str = "cpu") -> torch.Tensor:
+                   device: torch.device | str | None = None) -> torch.Tensor:
     """Random landmarks in a cylindrical shell around the trajectory region."""
+    device = resolve(device)
     theta = _uniform(gen, n, -math.pi, math.pi, device)
     r = torch.sqrt(_uniform(gen, n, r_min**2, r_max**2, device))
     z = _uniform(gen, n, z_min, z_max, device)
@@ -89,8 +91,9 @@ def make_landmarks(gen: torch.Generator, n: int, r_min: float = 1.5, r_max: floa
 
 def make_trajectory(n_frames: int, radius: float = 0.8, height_amp: float = 0.15,
                     yaw_per_frame: float = 0.03,
-                    device: torch.device | str = "cpu") -> torch.Tensor:
+                    device: torch.device | str | None = None) -> torch.Tensor:
     """Deterministic circular arc + bobbing + yaw: (F, 4, 4) world-from-rig."""
+    device = resolve(device)
     t = torch.arange(n_frames, dtype=torch.float32, device=device)
     ang = t * yaw_per_frame * 2.0
     pos = torch.stack([radius * torch.cos(ang) - radius, radius * torch.sin(ang),
@@ -102,15 +105,17 @@ def make_trajectory(n_frames: int, radius: float = 0.8, height_amp: float = 0.15
 
 
 def landmark_descriptors(gen: torch.Generator, n_landmarks: int,
-                         device: torch.device | str = "cpu") -> torch.Tensor:
+                         device: torch.device | str | None = None) -> torch.Tensor:
     """One canonical random 256-bit descriptor per landmark (int32 words)."""
+    device = resolve(device)
     return torch.randint(-2**31, 2**31, (n_landmarks, DESC_WORDS), generator=gen,
                          dtype=torch.int32, device=device)
 
 
 def descriptor_flips(gen: torch.Generator, shape: tuple[int, ...], flip_prob: float,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
+                     device: torch.device | str | None = None) -> torch.Tensor:
     """int32 masks with each of the 32 bits set independently w.p. flip_prob."""
+    device = resolve(device)
     if flip_prob <= 0.0:
         return torch.zeros(shape, dtype=torch.int32, device=device)
     bits = torch.rand(shape + (32,), generator=gen, device=device) < flip_prob
@@ -119,7 +124,8 @@ def descriptor_flips(gen: torch.Generator, shape: tuple[int, ...], flip_prob: fl
 
 
 def make_scene(gen: torch.Generator, n_frames: int, n_landmarks: int = 4096,
-               device: torch.device | str = "cpu") -> Scene:
+               device: torch.device | str | None = None) -> Scene:
+    device = resolve(device)
     return Scene(
         landmarks=make_landmarks(gen, n_landmarks, device=device),
         lm_desc=landmark_descriptors(gen, n_landmarks, device=device),
@@ -128,7 +134,8 @@ def make_scene(gen: torch.Generator, n_frames: int, n_landmarks: int = 4096,
 
 
 def draw_observation(gen: torch.Generator, max_features: int, desc_flip_prob: float,
-                     device: torch.device | str = "cpu") -> ObservationDraws:
+                     device: torch.device | str | None = None) -> ObservationDraws:
+    device = resolve(device)
     k = max_features
     return ObservationDraws(
         noise_top=torch.randn(k, 2, generator=gen, device=device),

@@ -22,7 +22,8 @@ import torch
 
 from sosvo_torch.geom.lie import norm
 from sosvo_torch.geometry.essential import _frob, _normal_matrix, _trace, fit_essential_fast
-from sosvo_torch.tools.workload import card_info, cuda_ms, require_cuda
+from sosvo_torch.tools.workload import card_info, cuda_ms
+from sosvo_torch.utils.device import default_device
 
 
 def chol9_unrolled(M: torch.Tensor) -> torch.Tensor:
@@ -98,7 +99,7 @@ def minimal_sets(gen: torch.Generator, h: int, device) -> tuple[torch.Tensor, to
 
 
 def main() -> None:
-    device = require_cuda()
+    device = default_device()
     print(f"card: {card_info()}", flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     for h in (512, 1024):

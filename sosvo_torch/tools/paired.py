@@ -21,7 +21,8 @@ import os
 import subprocess
 import sys
 
-from sosvo_torch.tools.workload import card_info, require_cuda
+from sosvo_torch.tools.workload import card_info
+from sosvo_torch.utils.device import default_device
 
 WORKER = r"""
 import dataclasses, json, statistics, sys, time
@@ -66,7 +67,7 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=9)
     args = ap.parse_args()
-    require_cuda()
+    default_device()
     print(f"card: {card_info()}", flush=True)
     for r in range(args.rounds):
         for tree in (args.trees if r % 2 == 0 else args.trees[::-1]):

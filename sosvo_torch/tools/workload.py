@@ -2,7 +2,9 @@
 
 A workload is a config preset from `configs/` in observation mode, a scene
 and its per-frame observations at 0.3 px pixel noise and 2 % descriptor bit
-flips (bench.py's), all drawn from one seeded generator on the device.
+flips (bench.py's), all drawn from one seeded generator on the device. It
+is replayed frame to frame (`replayer`) or with keyframed window BA
+(`ba_replayer`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from sosvo_torch.sensor.rig import default_rig
 from sosvo_torch.synth.scene import make_scene, observe_sequence
 from sosvo_torch.utils.config import PipelineConfig, load_pipeline_config
+from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
 from sosvo_torch.vo.pipeline import run_replay
 from sosvo_torch.vo.state import init_track_state
 
@@ -54,11 +57,14 @@ def replayer(cfg: PipelineConfig, rig, scene, obs, device):
     return replay
 
 
-def require_cuda() -> torch.device:
-    """The first CUDA device; raises where there is none (no CPU fallback)."""
-    if not torch.cuda.is_available():
-        raise SystemExit("this measurement needs a CUDA device")
-    return torch.device("cuda", 0)
+def ba_replayer(cfg: PipelineConfig, rig, scene, obs, device):
+    """`replayer` for the keyframed window-BA replay (`run_replay_ba`), from
+    the same initial pose and RANSAC seed."""
+    def replay():
+        gen = torch.Generator(device=device).manual_seed(SEED + 2)
+        state = init_ba_state(cfg, gen, T0=scene.poses[0], device=device)
+        return run_replay_ba(rig, cfg, state, obs)
+    return replay
 
 
 def card_info() -> str:

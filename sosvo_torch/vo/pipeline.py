@@ -39,10 +39,16 @@ GATE_MAX_ANGLE = 0.15  # rad: rigid and essential rotations must agree this well
 
 class StepDraws(NamedTuple):
     """A step's random inputs: the (H, K) Gumbel matrices of its two RANSACs
-    (with a leading frame dim when handed to `run_replay`)."""
+    and, for the BA replay, the (H, L) one of relocalisation's RANSAC (with a
+    leading frame dim when handed to a replay)."""
 
     gumbel_rigid: torch.Tensor
     gumbel_ess: torch.Tensor
+    gumbel_reloc: torch.Tensor | None = None
+
+    def frame(self, f: int) -> "StepDraws":
+        """The draws of frame `f` of a stacked sequence."""
+        return StepDraws(*(None if x is None else x[f] for x in self))
 
 
 def azimuth_of(rays: torch.Tensor) -> torch.Tensor:
@@ -150,7 +156,7 @@ def run_replay(rig: OmnistereoRig, cfg: PipelineConfig, state: TrackState,
     """Replay a sequence frame by frame; outputs are stacked per frame."""
     outs = []
     for f in range(obs_seq.desc_top.shape[0]):
-        d = None if draws is None else StepDraws(draws.gumbel_rigid[f], draws.gumbel_ess[f])
+        d = None if draws is None else draws.frame(f)
         state, out = step(rig, cfg, state, obs_seq.frame(f), d)
         outs.append(out)
     return state, StepOutput(*(torch.stack(x) for x in zip(*outs)))

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from sosvo_torch.synth.scene import DESC_WORDS
+from sosvo_torch.utils.device import resolve
 
 
 class TrackState(NamedTuple):
@@ -51,7 +52,8 @@ class KeyframeFeatures(NamedTuple):
 
 def init_track_state(max_features: int, generator: torch.Generator,
                      T0: torch.Tensor | None = None,
-                     device: torch.device | str = "cpu") -> TrackState:
+                     device: torch.device | str | None = None) -> TrackState:
+    device = resolve(device)
     k = max_features
     return TrackState(
         T_world=(torch.eye(4, dtype=torch.float32, device=device) if T0 is None

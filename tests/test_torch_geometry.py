@@ -93,7 +93,7 @@ def test_rigid_transform_helpers():
 
 def test_default_rig_is_bit_identical():
     ref = jrig.default_rig()
-    got = trig.default_rig()
+    got = trig.default_rig(device="cpu")
     for view in ("top", "bottom"):
         for f in jmodel.ViewParams._fields:
             assert np.float32(getattr(getattr(ref, view), f)) == getattr(got, view).__getattribute__(f).item(), (view, f)
@@ -106,7 +106,7 @@ def test_project_and_lift(distorted):
     extra = dict(k1=-0.05, k2=0.01, p1=1e-3, p2=-5e-4, mis_rx=0.01, mis_ry=-0.02) if distorted else {}
     jview = jmodel.ViewParams.create(xi=0.96, fx=150.0, fy=151.0, cx=383.5, cy=383.0,
                                      min_elevation=-0.66, max_elevation=0.24, **extra)
-    tview = view_from_numpy(jview)
+    tview = view_from_numpy(jview, "cpu")
     rng = np.random.default_rng(2)
     pts = f32(rng, 200, 3, scale=3.0)
     uv_j, ok_j = jmodel.project(jview, jnp.asarray(pts))
@@ -121,7 +121,7 @@ def test_project_and_lift(distorted):
 
 def test_rig_conversion_round_trip():
     ref = jrig.default_rig(image_size=512, baseline=0.1)
-    got = rig_from_numpy(ref)
+    got = rig_from_numpy(ref, "cpu")
     assert got.image_height == 512
     close(got.bottom.z_offset, ref.bottom.z_offset, rtol=0, atol=0)
 

@@ -28,4 +28,4 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module was walked
+    assert int(out.stdout.strip()) >= 39  # every module was walked, the BA slice's too

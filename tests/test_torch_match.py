@@ -32,7 +32,7 @@ CASES = [  # (band, seed, ka, kb)
 
 
 def _port_inputs(da, db, va, vb, aza, azb):
-    return (desc_to_torch(da), desc_to_torch(db),
+    return (desc_to_torch(da, "cpu"), desc_to_torch(db, "cpu"),
             *(torch.tensor(np.asarray(x)) for x in (va, vb, aza, azb)))
 
 
@@ -81,7 +81,7 @@ def test_descriptor_int32_round_trip():
     da, _, _, _, _, _ = _random_problem(jax.random.PRNGKey(5), 64, 64)
     ref = np.asarray(da)
     assert ref.dtype == np.uint32 and (ref >= 2**31).any()  # bit 31 is exercised
-    t = desc_to_torch(ref)
+    t = desc_to_torch(ref, "cpu")
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(desc_to_numpy(t), ref)
     # Bit unpacking reads every bit, bit 31 included, as the reference's does.

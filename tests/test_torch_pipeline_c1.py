@@ -64,10 +64,10 @@ def c1_pair(request):
     _, ref = jax.jit(lambda s, o: jax_run_replay(rig, cfg, s, o))(state, obs)
 
     match_cuda.reset_launches()
-    t_state = track_state_from_numpy(state, torch.Generator())
+    t_state = track_state_from_numpy(state, torch.Generator(), "cpu")
     draws = _reference_draws(key, FRAMES, cfg.ransac.n_hyps, K)
-    _, got = run_replay(rig_from_numpy(rig), PipelineConfig(lazy_gate_ratio=request.param), t_state,
-                        observations_from_numpy(obs), draws)
+    _, got = run_replay(rig_from_numpy(rig, "cpu"), PipelineConfig(lazy_gate_ratio=request.param),
+                        t_state, observations_from_numpy(obs, "cpu"), draws)
     return scene, ref, got
 
 
@@ -118,10 +118,10 @@ def test_ate_and_rpe_match_reference():
 
 def _port_c1(noise, flips, frames=FRAMES, seed=0):
     gen = torch.Generator().manual_seed(seed)
-    rig = default_rig()
-    scene = make_scene(gen, frames, 4096)
+    rig = default_rig(device="cpu")
+    scene = make_scene(gen, frames, 4096, device="cpu")
     obs = observe_sequence(rig, scene, K, gen, noise, flips)
-    state = init_track_state(K, gen, T0=scene.poses[0])
+    state = init_track_state(K, gen, T0=scene.poses[0], device="cpu")
     _, outs = run_replay(rig, PipelineConfig(), state, obs)
     return scene, outs
 
@@ -142,13 +142,13 @@ def test_port_garbage_input_fails_safely():
 
 def test_sift_descriptor_is_not_ported():
     gen = torch.Generator().manual_seed(0)
-    rig = default_rig()
-    scene = make_scene(gen, 2, 512)
+    rig = default_rig(device="cpu")
+    scene = make_scene(gen, 2, 512, device="cpu")
     obs = observe_sequence(rig, scene, 64, gen)
     cfg = PipelineConfig()
     cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, descriptor="sift"))
     with pytest.raises(NotImplementedError, match="SIFT"):
-        run_replay(rig, cfg, init_track_state(64, gen), obs)
+        run_replay(rig, cfg, init_track_state(64, gen, device="cpu"), obs)
 
 
 @pytest.mark.parametrize("preset", sorted(p.name for p in (ROOT / "configs").glob("*.json")))

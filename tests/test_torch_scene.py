@@ -24,7 +24,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 def test_trajectory_matches():
     ref = np.asarray(jscene.make_trajectory(12))
-    got = tscene.make_trajectory(12).numpy()
+    got = tscene.make_trajectory(12, device="cpu").numpy()
     np.testing.assert_allclose(got, ref, **TOL)
 
 
@@ -35,8 +35,8 @@ def _jax_draws(key, k, flip_prob):
     return tscene.ObservationDraws(
         noise_top=torch.tensor(np.asarray(jax.random.normal(k_nt, (k, 2)))),
         noise_bottom=torch.tensor(np.asarray(jax.random.normal(k_nb, (k, 2)))),
-        flips_top=desc_to_torch(jscene.corrupt_descriptors(k_dt, zeros, flip_prob)),
-        flips_bottom=desc_to_torch(jscene.corrupt_descriptors(k_db, zeros, flip_prob)),
+        flips_top=desc_to_torch(jscene.corrupt_descriptors(k_dt, zeros, flip_prob), "cpu"),
+        flips_bottom=desc_to_torch(jscene.corrupt_descriptors(k_db, zeros, flip_prob), "cpu"),
     )
 
 
@@ -49,9 +49,9 @@ def test_observe_frame_with_reference_draws(frame, noise, flips):
     ref = jscene.observe_frame(rig, scene, frame, k, key, pixel_noise=noise,
                                desc_flip_prob=flips)
     t_scene = tscene.Scene(landmarks=torch.tensor(np.asarray(scene.landmarks)),
-                           lm_desc=desc_to_torch(scene.lm_desc),
+                           lm_desc=desc_to_torch(scene.lm_desc, "cpu"),
                            poses=torch.tensor(np.asarray(scene.poses)))
-    got = tscene.observe_frame(rig_from_numpy(rig), t_scene, frame, k,
+    got = tscene.observe_frame(rig_from_numpy(rig, "cpu"), t_scene, frame, k,
                                _jax_draws(key, k, flips), pixel_noise=noise)
 
     ref_ids = np.asarray(ref.lm_id)
@@ -78,16 +78,16 @@ def test_observe_frame_with_reference_draws(frame, noise, flips):
 
 def test_descriptor_flip_rate():
     gen = torch.Generator().manual_seed(0)
-    flips = tscene.descriptor_flips(gen, (512, 8), 0.02)
+    flips = tscene.descriptor_flips(gen, (512, 8), 0.02, device="cpu")
     rate = sum(bin(int(x) & 0xFFFFFFFF).count("1") for x in flips.flatten()) / (512 * 256)
     assert abs(rate - 0.02) < 0.003, rate
-    assert not tscene.descriptor_flips(gen, (4, 8), 0.0).any()
+    assert not tscene.descriptor_flips(gen, (4, 8), 0.0, device="cpu").any()
 
 
 def test_observe_sequence_shapes():
     gen = torch.Generator().manual_seed(1)
-    rig = rig_from_numpy(jax_default_rig())
-    scene = tscene.make_scene(gen, n_frames=3, n_landmarks=1024)
+    rig = rig_from_numpy(jax_default_rig(), "cpu")
+    scene = tscene.make_scene(gen, n_frames=3, n_landmarks=1024, device="cpu")
     obs = tscene.observe_sequence(rig, scene, 128, gen, pixel_noise=0.3,
                                   desc_flip_prob=0.02)
     assert obs.ray_top.shape == (3, 128, 3) and obs.desc_top.dtype == torch.int32
