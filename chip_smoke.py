@@ -9,9 +9,13 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
   2. hold the Hamming-match kernel against its plain PyTorch twin on the card
      -- every statistic must be equal, every index in range -- and time both
      with CUDA events: random descriptors at 200x170 with and without the
-     azimuth band, the ragged 1x300, 300x1 and 513x257, and 2048x2048; the
-     stereo and temporal matches of a c1 frame (K=512) and of a frame at
-     c3's sizes (K=2048);
+     azimuth band, the ragged 1x300, 300x1, 513x257, 17x9 and 1x1, all
+     descriptors equal (a tie at every column), all rows invalid, azimuths
+     straddling +/-pi in the band, and 2048x2048; the stereo and temporal
+     matches of a c1 frame (K=512) and of a frame at c3's sizes (K=2048);
+     three matcher calls back to back on one stream with no host sync
+     (the column scratch must come back clean after each); each wrapper
+     counts exactly one launch per call, and a call that raises none;
   3. replay the c1 workload at bench.py's shape (configs/c1_cpu_smoke.json,
      0.3 px noise, 2 % descriptor bit flips): ATE < 0.02 m, pose_ok on
      frames 1-9, exactly 2 matcher launches per frame;
@@ -42,8 +46,11 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      (L x K: a late c2 keyframe's 512x512, 1024x2048 at c3's sizes, and
      4096x1024), with its bound and a library yardstick.
 Each replay resets the launch counts just before it and reads them just
-after. Then it prints the card's name and power limit, one JSON line
-describing each kernel, and as the last line {"ok": true, "device": {...}}.
+after. Then it counts each kernel's device events per call (profiler; 1
+each: one launch, no fills or copies), prints the card's name and power
+limit, one JSON line describing each kernel (with its route: the matcher's
+b1 tensor-core product, the Schur kernel's cluster size), and as the last
+line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.
 """
@@ -148,6 +155,17 @@ def matcher_library_ms(label: str, ka: int, kb: int, device) -> float:
     print(f"matcher_library {label}: torch.matmul of +/-1 bits ({ka}x256)@(256x{kb}) f32 "
           f"ms={ms:.6f}", flush=True)
     return ms
+
+
+def main_matcher_args(cfg, n_landmarks, device):
+    """The stereo match's inputs of frame 0 of a workload with `cfg`'s K."""
+    from sosvo_torch.tools.workload import make_workload
+    from sosvo_torch.vo.pipeline import azimuth_of
+
+    _, _, obs = make_workload(cfg, 1, n_landmarks, device)
+    f0 = obs.frame(0)
+    return (f0.desc_top, f0.desc_bottom, f0.valid_top, f0.valid_bottom,
+            azimuth_of(f0.ray_top), azimuth_of(f0.ray_bottom))
 
 
 def compare_frame_matches(label, cfg, n_landmarks, device, results):
@@ -431,6 +449,88 @@ def schur_rejects(blocks) -> None:
         check(False, f"schur_reduce_cuda accepted {why}")
 
 
+def edge_problems(gen, device):
+    """(name, args, band) of the matcher's edge cases: ragged shapes that
+    are not multiples of its 16-row and 8-column tiles, all descriptors
+    equal (every column ties across all rows), all rows invalid, and
+    azimuths straddling +/-pi inside the band."""
+    import torch
+
+    out = [(f"random_{ka}x{kb}", random_problem(gen, ka, kb, device), band)
+           for ka, kb, band in ((17, 9, 0.06), (1, 1, 0.0))]
+    da, db, va, vb, aza, azb = random_problem(gen, 64, 48, device)
+    out.append(("all_equal_64x48", (da[:1].expand(64, 8).contiguous(), da[:1].expand(48, 8).contiguous(),
+                                    va, vb, aza, azb), 0.0))
+    da, db, va, vb, aza, azb = random_problem(gen, 96, 80, device)
+    out.append(("all_rows_invalid_96x80", (da, db, torch.zeros_like(va), vb, aza, azb), 0.0))
+    da, db, va, vb, _, _ = random_problem(gen, 120, 100, device)
+    aza = torch.pi - 0.05 * torch.rand(120, generator=gen, device=device)
+    azb = -torch.pi + 0.05 * torch.rand(100, generator=gen, device=device)
+    out.append(("band_straddles_pi_120x100", (da, db, va, vb, aza, azb), 0.06))
+    return out
+
+
+def matcher_back_to_back(gen, device) -> None:
+    """Three calls on one stream, no host sync between them, on inputs of
+    different widths: each equals the plain twin, so the column keys and
+    the ticket are clean after every call."""
+    import torch
+    from sosvo_torch.frontend.match import match_stats
+    from sosvo_torch.kernels.match_cuda import match_stats_cuda
+
+    calls = [(random_problem(gen, 700, 600, device), 0.06), (random_problem(gen, 600, 900, device), 0.0),
+             (random_problem(gen, 700, 600, device), 0.06)]
+    got = [match_stats_cuda(*args, band=band) for args, band in calls]
+    torch.cuda.synchronize()
+    for i, ((args, band), g) in enumerate(zip(calls, got)):
+        ref = match_stats(*args, band=band)
+        for field, x, y in zip(ref._fields, g, ref):
+            check(torch.equal(x, y), f"back-to-back call {i}: {field} differs from plain")
+    print("matcher_back_to_back: 3 calls, no host sync between them, each equal to plain", flush=True)
+
+
+def launch_counts(gen, device, blocks) -> None:
+    """Each wrapper counts exactly one launch per call, and a call that
+    raises counts none."""
+    from sosvo_torch.kernels import match_cuda, schur_cuda
+
+    args = random_problem(gen, 40, 30, device)
+    for _ in range(3):
+        before = match_cuda.launches
+        match_cuda.match_stats_cuda(*args)
+        check(match_cuda.launches == before + 1, "match_stats_cuda did not count one launch")
+        before = schur_cuda.launches
+        schur_cuda.schur_reduce_cuda(*blocks, 1e-3)
+        check(schur_cuda.launches == before + 1, "schur_reduce_cuda did not count one launch")
+    before = match_cuda.launches, schur_cuda.launches
+    for fn, bad in ((match_cuda.match_stats_cuda, (args[0].float(), *args[1:4])),
+                    (schur_cuda.schur_reduce_cuda, (blocks[0].double(), *blocks[1:], 1e-3))):
+        try:
+            fn(*bad)
+        except ValueError:
+            pass
+    check((match_cuda.launches, schur_cuda.launches) == before, "a refused call counted a launch")
+    print("launch_counts: one per call for each wrapper, none for a refused call", flush=True)
+
+
+def device_events_per_call(fn, calls: int = 20) -> float:
+    """Device events (kernels, copies, fills) per call of `fn`, from the
+    profiler over `calls` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return len(events) / calls
+
+
 def main() -> int:
     import torch
 
@@ -438,8 +538,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device available; this test needs one card", file=sys.stderr)
         return 1
     try:
-        from sosvo_torch.kernels import build
+        from sosvo_torch.kernels import build, schur_cuda
         from sosvo_torch.kernels.match_cuda import match_stats_cuda
+        from sosvo_torch.kernels.schur_cuda import schur_reduce_cuda
         from sosvo_torch.tools.workload import card_info, load_preset
         from sosvo_torch.vo.pipeline import stereo_triangulate
     except ImportError as e:
@@ -470,6 +571,8 @@ def main() -> int:
                          (513, 257, 0.06)):
         results[f"{ka}x{kb}_band{band}"] = compare_kernel(
             f"random_{ka}x{kb}_band{band}", random_problem(gen, ka, kb, device), band, c1)
+    for name, args, band in edge_problems(gen, device):
+        results[name] = compare_kernel(name, args, band, c1)
     results["2048"] = compare_kernel(
         "random_2048", random_problem(gen, 2048, 2048, device, planted=400),
         c1.frontend.stereo_band_rad, c1)
@@ -483,6 +586,7 @@ def main() -> int:
         except ValueError:
             continue
         check(False, f"match_stats_cuda accepted {why}")
+    matcher_back_to_back(gen, device)
 
     # 3. frame-to-frame replay at bench.py's shape
     launches = {"c1_bench_shape": replay_phase(
@@ -528,6 +632,7 @@ def main() -> int:
                                   (C_cc, C_cl[:, :513], C_ll[:513], C_c, C_l[:513]), lam)
     schur["W2"] = compare_schur("c2_W2_L512", (H_cc[:2], H_cl[:2], H_ll, b_c[:2], b_l), lam)
     schur_rejects(c2_blocks)
+    launch_counts(gen, device, c2_blocks)
 
     # 8. matcher at the map-association shapes (L x K)
     def association(label, cfg, rig, final, obs, n_frames):
@@ -548,6 +653,17 @@ def main() -> int:
 
     m_main = results["c1_512_stereo"]
     s_main = schur["c2_W5_L512"]
+    m_args = main_matcher_args(c1, c1_run["n_landmarks"], device)
+    m_events = device_events_per_call(lambda: match_stats_cuda(*m_args, band=c1.frontend.stereo_band_rad))
+    lam_t = torch.full((), lam, device=device)
+    s_events = device_events_per_call(lambda: schur_reduce_cuda(*c2_blocks, lam_t))
+    check(m_events == 1.0 and s_events == 1.0,
+          f"device events per call: matcher {m_events}, Schur {s_events}; expected 1 each")
+    cluster, resident = schur_cuda.cluster_shape(device)
+    clusters, _, _ = schur_cuda.schedule(5, c2.ba.max_landmarks, cluster, resident)
+    print(f"device_events_per_call: matcher {m_events} Schur {s_events}; "
+          f"Schur cluster size {cluster}, {resident} resident, clusters at W5/L512 {clusters}",
+          flush=True)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": [
         {"name": "match_hamming", "route": "cuda",
@@ -557,7 +673,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in results.values()),
          "ms": m_main["ms"], "plain_ms": m_main["plain_ms"], "bound_ms": m_main["bound_ms"],
          "bound_us": m_main["bound_ms"] * 1e3, "bound_by": m_main["bound_by"],
-         "library_ms": lib512, "shape": "512x512 stereo (c1/c2 K=512, band 0.06)"},
+         "library_ms": lib512, "shape": "512x512 stereo (c1/c2 K=512, band 0.06)",
+         "device_events_per_call": m_events,
+         "tensor_core_route": "b1: mma.sync m16n8k256 .and.popc"},
         {"name": "schur_reduce", "route": "cuda",
          "source": "sosvo_torch/csrc/schur_reduce.cu",
          "replaces": "sosvo/kernels/schur_pallas.py:106",
@@ -567,7 +685,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in schur.values()),
          "ms": s_main["ms"], "plain_ms": s_main["plain_ms"], "bound_ms": s_main["bound_ms"],
          "bound_us": s_main["bound_ms"] * 1e3, "bound_by": s_main["bound_by"],
-         "library_ms": s_main["library_ms"], "shape": "W=5, L=512 (late c2 window)"},
+         "library_ms": s_main["library_ms"], "shape": "W=5, L=512 (late c2 window)",
+         "device_events_per_call": s_events, "cluster_size": cluster,
+         "clusters_at_shape": clusters},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

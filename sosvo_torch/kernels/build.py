@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 LIB_NAME = "sosvo_kernels"
@@ -98,13 +100,26 @@ def load() -> ctypes.CDLL:
     if _loaded is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.sosvo_match_hamming.argtypes = [p, p, p, p, p, p, i, i, f, p, p, p, p, p]
+        lib.sosvo_match_hamming.argtypes = [p, p, p, p, p, p, i, i, f, p, p, p, p, p, p, p, p]
         lib.sosvo_match_hamming.restype = i
-        lib.sosvo_schur_tile_l.argtypes = []
-        lib.sosvo_schur_tile_l.restype = i
-        lib.sosvo_schur_reduce.argtypes = [p, ll, ll, p, p, p, p, p, i, i, i,
-                                           p, p, p, p, p, p, p]
+        lib.sosvo_match_grid.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.sosvo_match_grid.restype = i
+        for name in ("sosvo_schur_cluster_size", "sosvo_schur_resident_clusters"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        lib.sosvo_schur_reduce.argtypes = [p, ll, ll, p, p, p, p, p, f, i, i, i, i, i, i, i,
+                                           p, p, p, p, p, p, p, p]
         lib.sosvo_schur_reduce.restype = i
+        lib.sosvo_empty_kernel.argtypes = [p]
+        lib.sosvo_empty_kernel.restype = i
+        lib.sosvo_mma_rate.argtypes = [i, i, i, p, p]
+        lib.sosvo_mma_rate.restype = i
+        lib.sosvo_mma_rate_ops.argtypes = [i, i, i]
+        lib.sosvo_mma_rate_ops.restype = ctypes.c_double
+        lib.sosvo_ticket_kernel.argtypes = [i, i, p, p]
+        lib.sosvo_ticket_kernel.restype = i
+        lib.sosvo_cluster_kernel.argtypes = [i, i, p]
+        lib.sosvo_cluster_kernel.restype = i
         _loaded = lib
     return _loaded
 
@@ -112,3 +127,26 @@ def load() -> ctypes.CDLL:
 def build_log() -> str:
     log = library_path().parent / "build.log"
     return log.read_text() if log.exists() else ""
+
+
+# The raw handle of a device's current stream and the current device index,
+# by PyTorch's own C entry points (what its generated kernels use), which
+# cost a fraction of torch.cuda.current_stream(...).cuda_stream and
+# torch.cuda.current_device() on the host.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+
+
+def stream_of(device: torch.device) -> int:
+    """The raw handle of `device`'s current stream, for the C launchers."""
+    return _raw_stream(device.index)
+
+
+def launch(device: torch.device, fn, *args) -> int:
+    """`fn(*args)`, a C launcher, with `device` current: the runtime launches
+    on the current device, so another device is made current for the call."""
+    if device.index == _current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)

@@ -3,10 +3,16 @@
 Replaces the Pallas TPU kernel `sosvo/kernels/match_pallas.py:
 match_stats_pallas` (body `_match_kernel`) and its wrapper `match_pallas`.
 The kernel is `sosvo_torch/csrc/match_hamming.cu`; its header says what it
-computes, what bounds it on the card (launch latency and per-column atomics
-at K <= 2048, not bytes or FLOPs) and how the design handles blocks that run
-in no order (register-resident rows, shared-memory B tiles, a packed 64-bit
-atomicMin for the column argmin).
+computes, what bounds it on the card (latency: one launch, the loads and
+the per-column atomics, at K <= 2048) and how it is built for Hopper
+(b1 AND/popc tensor-core products, a register epilogue, a packed 64-bit
+atomicMin for the column argmin decoded by the block that finishes last).
+
+Each call is one kernel launch: the four statistics are views of one
+`torch.empty`, and the column keys, the row partials of a split grid and
+the ticket counter live in a scratch kept per (device, stream), filled with
+its identity when it is allocated and left clean by every call (calls on
+one stream are ordered).
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise); CPU tensors run the plain twin `sosvo_torch.frontend.match.
@@ -24,6 +30,10 @@ from sosvo_torch.frontend.match import MatchResult, MatchStats, WORDS, match_fro
 from sosvo_torch.kernels import build
 
 launches = 0  # kernel launches since import or the last reset_launches()
+SCRATCH_MIN = 4096  # columns a new scratch holds at least
+
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+_row_part_words: dict[int, int] = {}  # per device: 16 float4 per SM, in int64 words
 
 
 def reset_launches() -> None:
@@ -31,9 +41,31 @@ def reset_launches() -> None:
     launches = 0
 
 
+def _scratch_for(device: torch.device, stream: int, kb: int) -> tuple[int, int, int]:
+    """Pointers (column keys, ticket, row partials) into the scratch of
+    `stream`: an int64 tensor of `cap` column keys at ~0, room for 16 row
+    states (float4) per SM of the card, and the ticket counter at 0 in its
+    last element. Allocated (and filled) only when the stream has none or a
+    smaller one."""
+    key = (device.index, stream)
+    s = _scratch.get(key)
+    if s is None or s.numel() < kb + _row_part_words[device.index] + 1:
+        if device.index not in _row_part_words:
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            _row_part_words[device.index] = 2 * 16 * sms
+        cap = max(kb, SCRATCH_MIN)
+        cap += cap & 1  # even, so the row partials start 16-byte aligned
+        s = torch.full((cap + _row_part_words[device.index] + 1,), -1, dtype=torch.int64,
+                       device=device)
+        s[-1] = 0
+        _scratch[key] = s
+    base, n = s.data_ptr(), s.numel()
+    return base, base + 8 * (n - 1), base + 8 * (n - 1 - _row_part_words[device.index])
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"match_stats_cuda: {name} must be {dtype} {shape} on {device}, "
+    if t.dtype != dtype or t.shape != shape or t.device != device:
+        raise ValueError(f"match_stats_cuda: {name} must be {dtype} {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
@@ -66,24 +98,27 @@ def match_stats_cuda(desc_a: torch.Tensor, desc_b: torch.Tensor,
         az_a, az_b = az_a.contiguous(), az_b.contiguous()
     desc_a, desc_b = desc_a.contiguous(), desc_b.contiguous()
     valid_a, valid_b = valid_a.contiguous(), valid_b.contiguous()
+    if desc_a.data_ptr() % 16 or desc_b.data_ptr() % 16:
+        raise ValueError("match_stats_cuda: descriptors must start on a 16-byte boundary")
 
     lib = build.load()
-    d_best = torch.empty(ka, dtype=torch.float32, device=device)
-    d_second = torch.empty(ka, dtype=torch.float32, device=device)
-    idx_b = torch.empty(ka, dtype=torch.int32, device=device)
-    col_key = torch.full((kb,), -1, dtype=torch.int64, device=device)  # ~0: atomicMin identity
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = lib.sosvo_match_hamming(
-            desc_a.data_ptr(), desc_b.data_ptr(), valid_a.data_ptr(), valid_b.data_ptr(),
-            az_a.data_ptr() if use_band else None, az_b.data_ptr() if use_band else None,
-            ka, kb, float(band) if use_band else 0.0,
-            d_best.data_ptr(), d_second.data_ptr(), idx_b.data_ptr(), col_key.data_ptr(),
-            stream)
+    stream = build.stream_of(device)
+    col_key, ticket, row_part = _scratch_for(device, stream, kb)
+    out = torch.empty(3 * ka + kb, dtype=torch.float32, device=device)
+    # split_with_sizes, not split: Tensor.split's Python layer costs as much
+    # host time as the views themselves
+    d_best, d_second, ints = out.split_with_sizes((ka, ka, ka + kb))
+    idx_b, col_argmin = ints.view(torch.int32).split_with_sizes((ka, kb))
+    status = build.launch(
+        device, lib.sosvo_match_hamming,
+        desc_a.data_ptr(), desc_b.data_ptr(), valid_a.data_ptr(), valid_b.data_ptr(),
+        az_a.data_ptr() if use_band else None, az_b.data_ptr() if use_band else None,
+        ka, kb, float(band) if use_band else 0.0,
+        d_best.data_ptr(), d_second.data_ptr(), idx_b.data_ptr(), col_argmin.data_ptr(),
+        col_key, ticket, row_part, stream)
     if status != 0:
         raise RuntimeError(f"match_hamming kernel launch failed with CUDA error {status}")
     launches += 1
-    col_argmin = (col_key & 0xFFFFFFFF).to(torch.int32)  # low word: the row
     return MatchStats(d_best, d_second, idx_b, col_argmin)
 
 

@@ -61,6 +61,24 @@ for label, preset, frames in (("c1", "c1_cpu_smoke", 10), ("c3_40f", "c3_host_pg
 """
 
 
+def run_in_turns(worker: str, trees: list[str], rounds: int, tag: str, *args: str) -> None:
+    """Run the Python source `worker` once per tree and round, in a process
+    of its own with the tree as its working directory and import path and
+    `tree, *args` as its arguments: in order on even rounds, in reverse on
+    odd ones. Prints the lines it prints that start with `tag`, after the
+    round's number; raises with the end of its errors if it fails."""
+    for r in range(rounds):
+        for tree in (trees if r % 2 == 0 else trees[::-1]):
+            env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+            out = subprocess.run([sys.executable, "-c", worker, tree, *args], cwd=tree, env=env,
+                                 capture_output=True, text=True, timeout=900)
+            for line in out.stdout.splitlines():
+                if line.startswith(tag):
+                    print(f"round {r} {line}", flush=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"worker for {tree} failed:\n{out.stderr[-4000:]}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
@@ -69,11 +87,7 @@ def main() -> None:
     args = ap.parse_args()
     default_device()
     print(f"card: {card_info()}", flush=True)
-    for r in range(args.rounds):
-        for tree in (args.trees if r % 2 == 0 else args.trees[::-1]):
-            env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-            subprocess.run([sys.executable, "-c", WORKER, tree, str(args.reps)],
-                           cwd=tree, env=env, check=True, timeout=900)
+    run_in_turns(WORKER, args.trees, args.rounds, "PAIRED", str(args.reps))
 
 
 if __name__ == "__main__":

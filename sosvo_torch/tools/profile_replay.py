@@ -1,6 +1,7 @@
 """Where a replay's time goes on the card: torch.profiler over one replay.
 
     python -m sosvo_torch.tools.profile_replay [--ba]
+    python -m sosvo_torch.tools.profile_replay --kernels [TREE ...] [--rounds N]
 
 For bench.py's c1 workload (10 frames) and c3's sizes in observation mode
 (K=2048, H=1024, the first 40 of its frames, 16384 landmarks), after one
@@ -21,6 +22,23 @@ With --ba the same for the keyframed window-BA replay instead: c2
 BA, relocalisation) labelled beside the frame step's, so a keyframe's BA
 can be set against the frame step; then the Schur kernel's device time per
 call against its plain version on a late c2 window (W=5, L=512).
+
+With --kernels, both kernels alone at every main-path shape, for each
+source TREE (the root of a checkout of the port; `.` for this one), one
+process per tree, in turns (A B, B A, ...): device us per call and device
+events per call (profiler over 50 calls) and wrapper ms (CUDA events over
+200 back-to-back calls). Matcher: the stereo and temporal matches of a c1
+frame (K=512) and of a frame at c3's sizes (K=2048), and the map
+associations L x K at 512x512 (c2), 1024x2048 (c3 sizes) and 4096x1024
+(c5) on random descriptors with 40 planted matches; Schur: random SPD
+windows at W5/L512 (c2), W5/L1024 (c3 sizes) and W8/L4096 (c5). The worker
+uses only entry points that every tree of the port has. Then, in this
+process: the library yardstick of each shape (one torch.matmul of the same
+product, which the port never calls), the launch floors (probes with no
+work through the same ctypes route: an empty kernel, the matcher's grid
+taking its tickets, the Schur kernel's clusters syncing; device us and
+wrapper ms) and a host
+breakdown of one wrapper call of each kernel; with no TREE, only these.
 """
 
 from __future__ import annotations
@@ -33,8 +51,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from sosvo_torch.frontend.match import match_stats
+from sosvo_torch.kernels import match_cuda
 from sosvo_torch.kernels.match_cuda import match_stats_cuda
 from sosvo_torch.kernels.schur_cuda import schur_reduce_cuda, schur_reduce_plain
+from sosvo_torch.tools.paired import run_in_turns
 from sosvo_torch.tools.workload import (
     ba_replayer,
     card_info,
@@ -163,12 +183,204 @@ def profile_schur(device) -> None:
               f"device_events_per_call={events} top={top}", flush=True)
 
 
+KERNEL_WORKER = r"""
+import sys
+import torch
+from sosvo_torch.kernels.match_cuda import match_stats_cuda
+from sosvo_torch.kernels.schur_cuda import schur_reduce_cuda
+from sosvo_torch.tools.profile_replay import _device_us_per_call
+from sosvo_torch.tools.workload import cuda_ms, load_preset, make_workload
+from sosvo_torch.vo.pipeline import azimuth_of, stereo_triangulate
+
+tree = sys.argv[1]
+dev = torch.device("cuda", 0)
+
+
+def report(kind, shape, fn):
+    us, ev, _ = _device_us_per_call(fn)
+    print(f"KERNEL {tree} {kind} {shape} device_us={us} events={ev} wrapper_ms={cuda_ms(fn, 200)}",
+          flush=True)
+
+
+gen = torch.Generator(device=dev).manual_seed(11)
+for label, preset in (("512", "c1_cpu_smoke"), ("2048", "c3_host_pgo")):
+    cfg, run = load_preset(preset)
+    rig, _, obs = make_workload(cfg, 2, run["n_landmarks"], dev)
+    f0, f1 = obs.frame(0), obs.frame(1)
+    v0, v1 = stereo_triangulate(rig, f0, cfg)[4], stereo_triangulate(rig, f1, cfg)[4]
+    band = cfg.frontend.stereo_band_rad
+    st = (f0.desc_top, f0.desc_bottom, f0.valid_top, f0.valid_bottom,
+          azimuth_of(f0.ray_top), azimuth_of(f0.ray_bottom))
+    report("matcher", f"{label}_stereo", lambda: match_stats_cuda(*st, band=band))
+    report("matcher", f"{label}_temporal",
+           lambda: match_stats_cuda(f0.desc_top, f1.desc_top, v0, v1))
+for ka, kb in ((512, 512), (1024, 2048), (4096, 1024)):
+    da = torch.randint(-2**31, 2**31, (ka, 8), generator=gen, dtype=torch.int32, device=dev)
+    db = torch.randint(-2**31, 2**31, (kb, 8), generator=gen, dtype=torch.int32, device=dev)
+    db[:40] = da[:40]
+    va = torch.rand(ka, generator=gen, device=dev) < 0.9
+    vb = torch.rand(kb, generator=gen, device=dev) < 0.9
+    report("matcher", f"association_{ka}x{kb}", lambda: match_stats_cuda(da, db, va, vb))
+for W, L in ((5, 512), (5, 1024), (8, 4096)):
+    J = torch.randn((L, 6, 3), generator=gen, device=dev)
+    H_ll = torch.einsum("lri,lrj->lij", J, J) + torch.eye(3, device=dev)
+    G = torch.randn((W, 8, 6), generator=gen, device=dev)
+    H_cc = 50.0 * (torch.einsum("wri,wrj->wij", G, G) + torch.eye(6, device=dev))
+    H_cl = torch.randn((W, L, 6, 3), generator=gen, device=dev)
+    b_c, b_l = torch.randn((W, 6), generator=gen, device=dev), torch.randn((L, 3), generator=gen, device=dev)
+    lam = torch.full((), 1e-3, device=dev)  # a device tensor, as the BA path passes it
+    report("schur", f"W{W}_L{L}", lambda: schur_reduce_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam))
+"""
+
+MATCHER_SHAPES = ((512, 512), (1024, 2048), (2048, 2048), (4096, 1024))  # the main path's ka x kb
+
+
+def library_yardsticks(device) -> None:
+    """One torch.matmul per shape computing the kernels' product (f32):
+    the +/-1 bits' product of the matcher, A (6W x 3L) @ H_cl (3L x 6W) for
+    the Schur reduction's S_off."""
+    from sosvo_torch.frontend.match import unpack_bits_pm1
+    from sosvo_torch.tools.workload import cuda_ms
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    for (ka, kb) in MATCHER_SHAPES:
+        a = unpack_bits_pm1(torch.randint(-2**31, 2**31, (ka, 8), generator=gen, dtype=torch.int32,
+                                          device=device))
+        bt = unpack_bits_pm1(torch.randint(-2**31, 2**31, (kb, 8), generator=gen,
+                                           dtype=torch.int32, device=device)).T.contiguous()
+        print(f"library matcher {ka}x{kb}: torch.matmul ({ka}x256)@(256x{kb}) f32 "
+              f"ms={cuda_ms(lambda: torch.matmul(a, bt), 200)}", flush=True)
+    for W, L in ((5, 512), (5, 1024), (8, 4096)):
+        A = torch.randn((6 * W, 3 * L), generator=gen, device=device)
+        H = torch.randn((3 * L, 6 * W), generator=gen, device=device)
+        print(f"library schur W{W}_L{L}: torch.matmul ({6 * W}x{3 * L})@({3 * L}x{6 * W}) f32 "
+              f"ms={cuda_ms(lambda: torch.matmul(A, H), 200)}", flush=True)
+
+
+def launch_floor(device) -> None:
+    """Device us and events per call (profiler) and wrapper ms (CUDA
+    events) of probes with no work, through the package's ctypes route: an
+    empty kernel; the matcher's grid at each main-path shape, as
+    `sosvo_match_grid` sizes it, with every block taking a ticket, as its
+    column decode does; one launch of the
+    Schur kernel's clusters at its shared memory, two cluster.sync() each."""
+    import ctypes
+
+    from sosvo_torch.kernels import build, schur_cuda
+    from sosvo_torch.tools.workload import cuda_ms
+
+    lib = build.load()
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    grid = (ctypes.c_int * 4)()
+
+    def probe(fn, *args):
+        def run():
+            if build.launch(device, fn, *args, build.stream_of(device)) != 0:
+                raise RuntimeError(f"{fn.__name__} launch failed")
+        us, events, _ = _device_us_per_call(run)
+        return f"device_us_per_call={us} device_events_per_call={events} wrapper_ms={cuda_ms(run, 200)}"
+
+    print(f"launch floor: empty kernel {probe(lib.sosvo_empty_kernel)}", flush=True)
+    for ka, kb in MATCHER_SHAPES:
+        if build.launch(device, lib.sosvo_match_grid, ka, kb, grid) != 0:
+            raise RuntimeError("sosvo_match_grid failed")
+        print(f"launch floor: ticket grid of the matcher at {ka}x{kb} ({grid[0]}x{grid[1]} blocks "
+              f"of {grid[2]}) {probe(lib.sosvo_ticket_kernel, ka, kb, ticket.data_ptr())}", flush=True)
+    cluster, resident = schur_cuda.cluster_shape(device)
+    for W, L in ((5, 512), (5, 1024), (8, 4096)):
+        clusters, tile, groups = schur_cuda.schedule(W, L, cluster, resident)
+        smem = schur_cuda.smem_bytes(W, tile, groups)
+        print(f"launch floor: Schur clusters at W{W}_L{L} ({clusters} x {cluster} CTAs, {smem} B) "
+              f"{probe(lib.sosvo_cluster_kernel, clusters, smem)}", flush=True)
+
+
+def _host_us(fn, n: int = 2000) -> float:
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def wrapper_host_breakdown(device) -> None:
+    """Host us of one wrapper call of each kernel at its main-path shape
+    (512x512 stereo; W5/L512) and of the steps it is made of, each timed
+    alone over 2000 calls (enqueue only, no synchronisation)."""
+    from sosvo_torch.kernels import build, schur_cuda
+
+    lib = build.load()
+    empty = lambda: build.launch(device, lib.sosvo_empty_kernel, build.stream_of(device))  # noqa: E731
+    cfg, run = load_preset("c1_cpu_smoke")
+    _, _, obs = make_workload(cfg, 1, run["n_landmarks"], device)
+    f0 = obs.frame(0)
+    args = (f0.desc_top, f0.desc_bottom, f0.valid_top, f0.valid_bottom,
+            pipeline.azimuth_of(f0.ray_top), pipeline.azimuth_of(f0.ray_bottom))
+    band = cfg.frontend.stereo_band_rad
+    out = torch.empty(4 * 512, device=device)
+    checks = [(args[0], torch.int32, (512, 8)), (args[1], torch.int32, (512, 8)),
+              (args[2], torch.bool, (512,)), (args[3], torch.bool, (512,)),
+              (args[4], torch.float32, (512,)), (args[5], torch.float32, (512,))]
+    steps = {
+        "match_stats_cuda (whole wrapper)": lambda: match_stats_cuda(*args, band=band),
+        "six argument checks": lambda: [match_cuda._check("x", t, d, sh, device)
+                                        for t, d, sh in checks],
+        "six .contiguous() calls": lambda: [a.contiguous() for a in args],
+        "torch.empty of the outputs": lambda: torch.empty(4 * 512, device=device),
+        "the outputs' views (split_with_sizes, view, split_with_sizes)":
+            lambda: (out.split_with_sizes((512, 512, 1024)),
+                     out[1024:].view(torch.int32).split_with_sizes((512, 512))),
+        "the scratch's pointers": lambda: match_cuda._scratch_for(device, build.stream_of(device), 512),
+        "ten .data_ptr() calls": lambda: [a.data_ptr() for a in args + args[:4]],
+        "build.launch of the empty kernel (ctypes call and launch)": empty,
+    }
+    for name, fn in steps.items():
+        print(f"host matcher: {name}: us_per_call={_host_us(fn)}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(3)
+    W, L = 5, 512
+    blocks = (torch.eye(6, device=device).expand(W, 6, 6).contiguous(),
+              torch.randn((W, L, 6, 3), generator=gen, device=device),
+              torch.eye(3, device=device).expand(L, 3, 3).contiguous(),
+              torch.randn((W, 6), generator=gen, device=device),
+              torch.randn((L, 3), generator=gen, device=device))
+    lam = torch.full((), 1e-3, device=device)
+    shapes = [(W, L, 6, 3), (W, 6, 6), (L, 3, 3), (W, 6), (L, 3)]
+    n_out = 2 * W * W * 36 + 12 * W + 9 * L
+    out = torch.empty(n_out, device=device)
+    steps = {
+        "schur_reduce_cuda (whole wrapper)": lambda: schur_reduce_cuda(*blocks, lam),
+        "five argument checks": lambda: [schur_cuda._check("x", t, sh, device, contiguous=False)
+                                         for t, sh in zip((blocks[1], blocks[0], *blocks[2:]), shapes)],
+        "the schedule": lambda: schur_cuda.schedule(W, L, *schur_cuda.cluster_shape(device)),
+        "torch.empty of the outputs": lambda: torch.empty(n_out, device=device),
+        "the outputs' views (split_with_sizes, five views)":
+            lambda: [t.view(-1) for t in out.split_with_sizes((W * W * 36, 6 * W, 9 * L, W * W * 36, 6 * W))],
+        "build.launch of the empty kernel (ctypes call and launch)": empty,
+    }
+    for name, fn in steps.items():
+        print(f"host schur W5/L512: {name}: us_per_call={_host_us(fn)}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ba", action="store_true", help="profile the window-BA replay")
+    ap.add_argument("--kernels", nargs="*", metavar="TREE",
+                    help="the kernels alone at every main-path shape, for each source tree "
+                         "(none: only the yardsticks, the launch floor and the host breakdown)")
+    ap.add_argument("--rounds", type=int, default=2, help="turns over the trees (--kernels)")
     args = ap.parse_args()
     device = default_device()
     print(f"card: {card_info()}", flush=True)
+    if args.kernels is not None:
+        device = torch.device("cuda", torch.cuda.current_device())  # the index the tensors carry
+        run_in_turns(KERNEL_WORKER, args.kernels, args.rounds, "KERNEL")
+        library_yardsticks(device)
+        launch_floor(device)
+        wrapper_host_breakdown(device)
+        return
     _label_stages()
     if args.ba:
         profile_replay("c2 window BA, observation mode", "c2_chip_ba", None, device, ba=True)

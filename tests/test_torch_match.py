@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from sosvo.frontend.match import column_band_penalty, match
+from sosvo.frontend.match import column_band_penalty, hamming_matrix_mxu, hamming_matrix_xor, match
 from sosvo.kernels.match_pallas import match_pallas, match_stats_pallas
 from sosvo_torch.convert import desc_to_numpy, desc_to_torch
-from sosvo_torch.frontend.match import match_stats
+from sosvo_torch.frontend.match import WORDS, hamming_matrix, match_stats
 from sosvo_torch.kernels import match_cuda
 from test_match_pallas import _random_problem
 
@@ -106,3 +106,44 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                         np.zeros(16, np.float32))
     with pytest.raises(ValueError, match="CUDA"):
         match_cuda.match_stats_cuda(a, b, pva, pvb)
+
+
+def _popc(words: np.ndarray) -> np.ndarray:
+    """Per-word popcount of int32 bit patterns."""
+    return np.bitwise_count(np.ascontiguousarray(words).view(np.uint32)).astype(np.int32)
+
+
+def _edge_rows(kind: str, rng) -> np.ndarray:
+    """Descriptor rows of the edge words: all-zero, all-one and sign-bit-set
+    int32 words, alone and mixed with random words."""
+    words = {"zero": [0], "ones": [-1], "sign_bit": [-2**31],
+             "mixed_edges": [0, -1, -2**31, 2**31 - 1]}[kind]
+    whole = [np.full(WORDS, w, np.int32) for w in words]
+    mixed = rng.choice(np.array(words + [int(rng.integers(-2**31, 2**31))], np.int64),
+                       size=(6, WORDS)).astype(np.int32)
+    return np.concatenate([np.stack(whole), mixed,
+                           rng.integers(-2**31, 2**31, (4, WORDS), dtype=np.int64).astype(np.int32)])
+
+
+@pytest.mark.parametrize("words", [0, 1, 2, "zero", "ones", "sign_bit", "mixed_edges"])
+def test_and_popc_distance_equals_xor_and_jax(words):
+    """The CUDA kernel's distance popc(a) + popc(b) - 2 popc(a & b) on the
+    packed int32 words (what its b1 AND/popc tensor-core product gives)
+    equals the XOR distance popc(a ^ b), the JAX package's Hamming matrices
+    and the port's plain one, on random seeds and on the edge words."""
+    rng = np.random.default_rng(words if isinstance(words, int) else 100)
+    if isinstance(words, int):
+        a = rng.integers(-2**31, 2**31, (37, WORDS), dtype=np.int64).astype(np.int32)
+        b = rng.integers(-2**31, 2**31, (29, WORDS), dtype=np.int64).astype(np.int32)
+        b[:5] = a[:5]
+    else:
+        a, b = _edge_rows(words, rng), _edge_rows(words, rng)[::-1].copy()
+    and_popc = (_popc(a).sum(1)[:, None] + _popc(b).sum(1)[None, :]
+                - 2 * _popc(a[:, None, :] & b[None, :, :]).sum(-1))
+    xor = _popc(a[:, None, :] ^ b[None, :, :]).sum(-1)
+    np.testing.assert_array_equal(and_popc, xor)
+    ja, jb = jnp.asarray(a.view(np.uint32)), jnp.asarray(b.view(np.uint32))
+    np.testing.assert_array_equal(np.asarray(hamming_matrix_xor(ja, jb)), and_popc)
+    np.testing.assert_array_equal(np.asarray(hamming_matrix_mxu(ja, jb)), and_popc)
+    plain = hamming_matrix(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(plain.numpy(), and_popc.astype(np.float32))

@@ -182,3 +182,116 @@ def test_bound_counts_the_contract(W, L):
     ms, by = bounds.schur_bound_ms(W, L)
     assert ms == pytest.approx(want, rel=1e-12)
     assert by == "bytes"
+
+
+def _cluster_order_sums(H_cl, inv, b_l, cluster, resident):
+    """float32 sums in the CUDA kernel's order on a card that holds
+    `resident` clusters at once (the order, not the kernel's rounding: the
+    kernel fuses each multiply-add, numpy rounds the product and the sum): CTA b of the K clusters of `cluster`
+    CTAs sums tiles b, b + K C, ...; in each tile, thread (pair, group) adds landmarks group,
+    group + G, ... one k at a time into its block of S_off and b_sub; each
+    CTA adds its groups in four chains (g mod 4, each in order) and then
+    (c0 + c1) + (c2 + c3), each cluster its ranks in order, and the
+    clusters are added in order. Returns (S_off (W, W, 6, 6), b_sub (W, 6))
+    with the upper block triangle mirrored, as the kernel writes it."""
+    W, L = H_cl.shape[:2]
+    n = 6 * W
+    clusters, tile, groups = schur_cuda.schedule(W, L, cluster, resident)
+    ctas = clusters * cluster
+    A = np.einsum("wlij,ljk->lkwi", H_cl, inv).reshape(L, 3, n).astype(np.float32)
+    H = H_cl.transpose(1, 3, 0, 2).reshape(L, 3, n)
+    seqs = [[[] for _ in range(groups)] for _ in range(ctas)]
+    for t0 in range(0, L, tile):
+        for g in range(groups):
+            seqs[(t0 // tile) % ctas][g] += list(range(t0 + g, min(t0 + tile, L), groups))
+    steps = max(len(s) for cta in seqs for s in cta)
+    idx = np.full((ctas, groups, steps), -1)
+    for r in range(ctas):
+        for g in range(groups):
+            idx[r, g, :len(seqs[r][g])] = seqs[r][g]
+    acc = np.zeros((ctas, groups, n, n), np.float32)
+    bacc = np.zeros((ctas, groups, n), np.float32)
+    for s in range(steps):
+        lm = idx[:, :, s]
+        on = (lm >= 0)[..., None]
+        for k in range(3):
+            a, h, b = A[lm, k], H[lm, k], b_l[lm, k]
+            acc = np.where(on[..., None], acc + a[..., :, None] * h[..., None, :], acc)
+            bacc = np.where(on, bacc + a * b[..., None], bacc)
+    chains = [(acc[:, j], bacc[:, j]) for j in range(min(4, groups))]
+    chains += [(np.zeros_like(acc[:, 0]), np.zeros_like(bacc[:, 0]))] * (4 - len(chains))
+    for g in range(4, groups):
+        a, b = chains[g % 4]
+        chains[g % 4] = (a + acc[:, g], b + bacc[:, g])
+    part = (chains[0][0] + chains[1][0]) + (chains[2][0] + chains[3][0])
+    bpart = (chains[0][1] + chains[1][1]) + (chains[2][1] + chains[3][1])
+    per_cluster = []
+    for c in range(clusters):
+        total, btotal = part[c * cluster], bpart[c * cluster]
+        for r in range(1, cluster):
+            total, btotal = total + part[c * cluster + r], btotal + bpart[c * cluster + r]
+        per_cluster.append((total, btotal))
+    total, btotal = per_cluster[0]
+    for t, b in per_cluster[1:]:
+        total, btotal = total + t, btotal + b
+    S_off = total.reshape(W, 6, W, 6).transpose(0, 2, 1, 3).copy()
+    for w in range(W):
+        for v in range(w + 1, W):
+            S_off[v, w] = S_off[w, v].T
+    return S_off, btotal.reshape(W, 6)
+
+
+@pytest.mark.parametrize("cluster,resident", [(8, 16), (16, 7), (16, 8)])
+@pytest.mark.parametrize("W,L", [(5, 512), (8, 4096)])
+def test_cluster_summation_order_matches_jax(W, L, cluster, resident):
+    """A tolerance check of the kernel's schedule: float32 sums in its order
+    (tiles strided over the CTAs of its clusters, ranks and then clusters
+    summed in order, the upper block triangle mirrored) stay within the
+    tolerance chip_smoke.py holds the kernel to against the JAX reduction,
+    at the c2 and c5 window sizes, for clusters of 8 or 16 CTAs and as many
+    resident at once as a 132-SM card holds (16 of 8; 7 or 8 of 16, as its
+    GPCs allow). It does not pin the kernel's bits: chip_smoke.py checks
+    those against the plain version and between repeats on the card."""
+    from chip_smoke import SCHUR_TOL
+
+    *arrays, lam = _random_blocks(W + L, W, L, 1e-3)
+    H_cc, H_cl, H_ll, b_c, b_l = arrays
+    inv = np.asarray(jschur.inv3x3(jnp.asarray(H_ll) + lam * jnp.eye(3)[None]))
+    S_off, b_sub = _cluster_order_sums(H_cl, inv, b_l, cluster, resident)
+    A = jnp.einsum("wlij,ljk->wlik", H_cl, inv)
+    assert _rel(S_off, jnp.einsum("wlik,vljk->wvij", A, H_cl)) < SCHUR_TOL["S_off"]
+    assert _rel(b_sub, jnp.einsum("wlik,lk->wi", A, b_l)) < SCHUR_TOL["b_sub"]
+    H_cc_eff = H_cc + lam * np.eye(6, dtype=np.float32)[None]
+    S = np.eye(W, dtype=np.float32)[:, :, None, None] * H_cc_eff[:, None] - S_off
+    S_ref, b_ref = jschur.reduce_camera_system(*(jnp.asarray(x) for x in (H_cc_eff, H_cl, inv, b_c, b_l)))
+    assert _rel(S, S_ref) < 1e-5
+    assert _rel(b_c - b_sub, b_ref) < 1e-5
+
+
+@pytest.mark.parametrize("ka,kb,band", [(512, 512, True), (2048, 2048, True),
+                                        (1024, 2048, False), (4096, 1024, False)])
+def test_matcher_bound_counts_the_contract(ka, kb, band):
+    """The matcher's bound counts each input read once (descriptors,
+    validity, azimuths with the band) and each of the contract's four
+    statistics written once, with their dtypes as the plain twin returns
+    them, and 2 ka kb 256 operations at the faster tensor-core form of the
+    work, the b1 AND/popc rate (the faster of its measured mma.sync and
+    wgmma forms) over the data sheet's int8 rate."""
+    from sosvo_torch.frontend.match import match_stats
+    from sosvo_torch.tools import bounds
+
+    rng = np.random.default_rng(ka + kb)
+    da = torch.from_numpy(rng.integers(-2**31, 2**31, (ka, 8), dtype=np.int64).astype(np.int32))
+    db = torch.from_numpy(rng.integers(-2**31, 2**31, (kb, 8), dtype=np.int64).astype(np.int32))
+    va, vb = torch.ones(ka, dtype=torch.bool), torch.ones(kb, dtype=torch.bool)
+    aza, azb = torch.zeros(ka), torch.zeros(kb)
+    ins = [da, db, va, vb] + ([aza, azb] if band else [])
+    stats = match_stats(da, db, va, vb, aza, azb, 0.06 if band else 0.0)
+    n_bytes = sum(t.numel() * t.element_size() for t in ins + list(stats))
+    ops = 2.0 * ka * kb * 256
+    assert bounds.B1_OP_PER_S > bounds.INT8_OP_PER_S
+    want = max(n_bytes / bounds.HBM_BYTES_PER_S, ops / bounds.B1_OP_PER_S) * 1e3
+    ms, by = bounds.matcher_bound_ms(ka, kb, band)
+    assert ms == pytest.approx(want, rel=1e-12)
+    assert by == ("operations" if ops / bounds.B1_OP_PER_S > n_bytes / bounds.HBM_BYTES_PER_S
+                  else "bytes")
