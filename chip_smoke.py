@@ -30,7 +30,24 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      observations;
   6. the same BA replay at c3's sizes (K=2048, H=1024, W=5, L=1024, 200
      frames): pose_ok 199/199, 50 keyframes, 245 Schur launches, ATE < 0.02 m
-     (not the c3 image pipeline: no frontend, no loop closure);
+     (observation mode: not the c3 image pipeline, whose frontend is not
+     ported);
+ 6c. c3's loop-closure leg on that BA replay, as sosvo/cli.py runs it after
+     a c3 replay: `pgo_refine_trajectory` over the replay's keyframes with
+     configs/c3_host_pgo.json's 160 candidates, 300 inliers and DCS 0.1:
+     exactly one matcher launch per keyframe and per candidate pair and 4
+     Schur launches per pair (the two-frame BA), every pose finite, at least
+     one loop, and ATE at most the JAX package's for the same leg on the CPU
+     (scripts/ref_c3_pgo_ate.py) plus a stated margin; then the matcher at
+     the loop-pair shape (2048x2048, no band) and the Schur kernel on that
+     pair's two-frame window (W=2, L=2048) against their plain versions;
+     on the leg's pose graph, the f32 solves the leg runs: cg within 1e-3
+     of dense, dense within 1e-4 of the same solve in float64 (cost within
+     1e-4 relative), and the solve's cost below its initial cost with at
+     least one step accepted;
+ 6d. the same leg on phase 4's frame-to-frame replay (stride keyframes):
+     ATE below the frame-to-frame ATE, and within the margin of the JAX
+     package's figure;
  6b. a 24-frame BA replay at c2's widths whose frames 8-12 lose their
      descriptors: relocalisation runs (on at least one frame), pose_ok holds
      outside the dropout, the pose is re-acquired after it, and matcher
@@ -45,12 +62,14 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
   8. hold the matcher against its plain twin at the map-association shapes
      (L x K: a late c2 keyframe's 512x512, 1024x2048 at c3's sizes, and
      4096x1024), with its bound and a library yardstick.
-Each replay resets the launch counts just before it and reads them just
-after. Then it counts each kernel's device events per call (profiler; 1
-each: one launch, no fills or copies), prints the card's name and power
-limit, one JSON line describing each kernel (with its route: the matcher's
-b1 tensor-core product, the Schur kernel's cluster size), and as the last
-line {"ok": true, "device": {...}}.
+Each replay and each loop-closure leg resets the launch counts just before
+it and reads them just after; the kernels line's `launches` are phase 6c's
+(this slice's path), `launches_by_path` every path's. Then it counts each
+kernel's device events per call (profiler; 1 each: one launch, no fills or
+copies), prints the card's name and power limit, one JSON line describing
+each kernel (with its route: the matcher's b1 tensor-core product, the
+Schur kernel's cluster size), and as the last line
+{"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.
 """
@@ -201,7 +220,8 @@ def timed_replays(replay, reps: int) -> float:
 def replay_phase(label: str, cfg, n_frames: int, n_landmarks: int, max_ate: float,
                  device, timed_reps: int):
     """One checked frame-to-frame replay (launch count, pose_ok, ATE), then
-    timed replays. Returns the matcher's launches."""
+    timed replays. Returns (the matcher's launches, rig, scene, obs, the
+    checked replay's outputs)."""
     import torch
     from sosvo_torch.eval.ate import ate_rmse
     from sosvo_torch.kernels import match_cuda
@@ -232,13 +252,14 @@ def replay_phase(label: str, cfg, n_frames: int, n_landmarks: int, max_ate: floa
           f"gate_ran_on={gate_runs}/{n_frames - 1} replay_s_median={med} "
           f"frames_per_s={n_frames / med} (host clock, {timed_reps} runs after one checked run)",
           flush=True)
-    return launches
+    return launches, rig, scene, obs, outs
 
 
 def ba_replay_phase(label: str, cfg, n_frames: int, n_landmarks: int, max_ate: float,
                     device, timed_reps: int, vs_f2f: bool):
     """One checked keyframed-BA replay, then timed replays. Returns
-    (matcher launches, Schur launches, rig, scene, obs, final state)."""
+    (matcher launches, Schur launches, rig, scene, obs, final state, the
+    checked replay's outputs)."""
     import torch
     from sosvo_torch.eval.ate import ate_rmse
     from sosvo_torch.kernels import match_cuda, schur_cuda
@@ -286,7 +307,7 @@ def ba_replay_phase(label: str, cfg, n_frames: int, n_landmarks: int, max_ate: f
           f"schur_launches={s_launches} matcher_launches={m_launches} "
           f"replay_s_median={med} frames_per_s={n_frames / med} "
           f"(host clock, {timed_reps} runs after one checked run)", flush=True)
-    return m_launches, s_launches, rig, scene, obs, final
+    return m_launches, s_launches, rig, scene, obs, final, outs
 
 
 def ba_dropout_phase(cfg, n_landmarks: int, device) -> tuple[int, int]:
@@ -341,6 +362,146 @@ def ba_dropout_phase(cfg, n_landmarks: int, device) -> tuple[int, int]:
           f"ATE_after_dropout_m={rmse} keyframes={n_kf} schur_launches={s_launches} "
           f"matcher_launches={m_launches}", flush=True)
     return m_launches, s_launches
+
+
+# The JAX package's ATE (m) after c3's loop-closure leg at c3's sizes on the
+# CPU (scripts/ref_c3_pgo_ate.py, seeds 0-2; PERF.md section 5): the highest
+# of its three seeds for each replay (BA 0.007946-0.010886 m, frame to frame
+# 0.008817-0.011375 m). The port's leg replays a scene of its own, drawn on
+# the card, so it may exceed that figure by C3_PGO_MARGIN_M: twice the
+# largest spread between the reference's seeds (2.94 mm, BA).
+C3_PGO_REF_ATE_M = {"ba": 0.010886459, "f2f": 0.011374913}
+C3_PGO_MARGIN_M = 0.006
+
+
+def pgo_phase(label: str, cfg, rig, scene, obs, T_world, kf_idx, replay: str, device):
+    """c3's loop-closure leg over one replayed trajectory, as sosvo/cli.py
+    runs it after a c3 replay (`tools/workload.py:pgo_leg`). Checks the
+    launch counts (one matcher launch per keyframe's stereo match and per
+    candidate pair, four Schur launches per pair's two-frame BA), finite
+    poses, at least one loop, a solve that lowered the cost with at least
+    one step accepted, and the ATE against the JAX reference.
+    Returns (the leg, matcher launches, Schur launches)."""
+    import torch
+    from sosvo_torch.eval.ate import ate_rmse
+    from sosvo_torch.kernels import match_cuda, schur_cuda
+    from sosvo_torch.tools.workload import pgo_leg
+    from sosvo_torch.vo.loop_closure import loop_pairs
+
+    n_kf = len(kf_idx)
+    n_pairs = cfg.loop_candidates or len(loop_pairs(n_kf, 3)[0])
+    torch.cuda.synchronize()
+    match_cuda.reset_launches()
+    schur_cuda.reset_launches()
+    t0 = time.perf_counter()
+    leg = pgo_leg(cfg, rig, obs, T_world, kf_idx)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    m_launches, s_launches = match_cuda.launches, schur_cuda.launches
+    gt = scene.poses[1:, :3, 3]
+    before = float(ate_rmse(T_world[1:, :3, 3], gt)[0])
+    after = float(ate_rmse(leg.T_corrected[1:, :3, 3], gt)[0])
+    n_loops = int(leg.n_loops)
+    limit = C3_PGO_REF_ATE_M[replay] + C3_PGO_MARGIN_M
+    check(m_launches == n_kf + n_pairs,
+          f"{label}: {m_launches} matcher launches, expected {n_kf} + {n_pairs}")
+    check(s_launches == 4 * n_pairs, f"{label}: {s_launches} Schur launches, expected 4 x {n_pairs}")
+    check(bool(torch.isfinite(leg.T_corrected).all()), f"{label}: non-finite pose")
+    check(n_loops >= 1, f"{label}: no loop closed")
+    res = leg.result
+    check(float(res.cost) < float(res.cost0) and bool(res.accepted.any()),
+          f"{label}: the pose-graph solve lowered no cost ({float(res.cost0)} -> {float(res.cost)}, "
+          f"accepted {res.accepted.int().tolist()})")
+    check(after <= limit, f"{label}: ATE after PGO {after} m above the JAX reference "
+                          f"{C3_PGO_REF_ATE_M[replay]} m + {C3_PGO_MARGIN_M} m")
+    if replay == "f2f":
+        check(after < before, f"{label}: ATE after PGO {after} m not below {before} m")
+    print(f"pgo {label}: keyframes={n_kf} candidates={n_pairs} min_inliers={cfg.loop_min_inliers} "
+          f"robust={cfg.pgo_robust} delta={cfg.pgo_robust_delta} n_loops={n_loops} "
+          f"ATE_before_m={before} ATE_after_m={after} (limit {limit}: JAX CPU reference "
+          f"{C3_PGO_REF_ATE_M[replay]} + {C3_PGO_MARGIN_M}) cost0={float(leg.result.cost0)} "
+          f"cost={float(leg.result.cost)} accepted={leg.result.accepted.int().tolist()} "
+          f"leg_s={seconds} (host clock) matcher_launches={m_launches} "
+          f"schur_launches={s_launches}", flush=True)
+    return leg, m_launches, s_launches
+
+
+def loop_shape_kernels(cfg, rig, obs, kf_idx, leg, device):
+    """Both kernels at the loop leg's shapes on its first accepted loop pair:
+    the matcher on the two keyframes' features (K x K, no band), and the
+    Schur kernel on the pair's two-frame window (W=2, L=K; its RANSAC from
+    a draw of its own) in the first LM iteration. Returns the two
+    comparisons' results."""
+    import torch
+    from sosvo_torch.backend.ba import build_blocks
+    from sosvo_torch.geometry.ransac import gumbel
+    from sosvo_torch.synth.scene import FrameObservations
+    from sosvo_torch.vo.loop_closure import LOOP_SEED, _kf_features, pair_window
+    from sosvo_torch.vo.state import KeyframeFeatures
+
+    g, n_odom = leg.graph, len(kf_idx) - 1
+    first = n_odom + int(torch.nonzero(g.w[n_odom:] > 0)[0])
+    i, j = int(g.ej[first]), int(g.ei[first])   # a loop edge (j, i) measures X_j X_i^-1
+    frames = torch.tensor([int(kf_idx[i]), int(kf_idx[j])], device=device)
+    feats = _kf_features(rig, cfg, FrameObservations(*(x[frames] for x in obs)))
+    a, b = (KeyframeFeatures(*(x[n] for x in feats)) for n in (0, 1))
+    k = a.desc.shape[0]
+    m = compare_kernel(f"c3_loop_pair_kf{i}_kf{j}_{k}x{k}",
+                       (a.desc, b.desc, a.valid, b.valid, None, None), 0.0, cfg)
+    gen = torch.Generator(device=device).manual_seed(LOOP_SEED)
+    _, win = pair_window(rig, cfg, a, b, gumbel(gen, (cfg.ransac.n_hyps, k), device),
+                         cfg.loop_min_inliers)
+    s = compare_schur(f"c3_loop_window_kf{i}_kf{j}_W2_L{k}", build_blocks(win)[:5], 1e-3)
+    return m, s
+
+
+def pgo_solvers(cfg, leg) -> None:
+    """The f32 solves the leg runs, on its pose graph: the cg solver (64
+    iterations) within 1e-3 of the dense one (tests/test_pose_graph.py:165's
+    tolerance), and the dense one within 1e-4 of the same solve in float64,
+    its cost within 1e-4 relative (the f32 solve stops where a step's gain
+    is below its cost's rounding: 0.8-1.7e-6 relative on the card). Also prints cg against dense in float64,
+    and how far two builds of the normal equations, and two dense solves,
+    differ (`index_add` adds through atomics on the card)."""
+    import torch
+    from sosvo_torch.backend.pose_graph import build_system, pgo_solve
+
+    kw = dict(iters=10, robust=cfg.pgo_robust, robust_delta=cfg.pgo_robust_delta)
+    g = leg.graph
+    g64 = g._replace(X=g.X.double(), T_meas=g.T_meas.double(), w=g.w.double())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = pgo_solve(g, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cg = pgo_solve(g, solver="cg", cg_iters=64, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dense64 = pgo_solve(g64, **kw)
+    cg64 = pgo_solve(g64, solver="cg", cg_iters=64, **kw)
+    err32 = float((cg.X - dense.X).abs().max())
+    err64 = float((cg64.X - dense64.X).abs().max())
+    off = {name: float((x.X.double() - dense64.X).abs().max()) for name, x in
+           (("dense", dense), ("cg", cg))}
+    cost_rel = abs(float(dense.cost) - float(dense64.cost)) / float(dense64.cost)
+    H1, b1, _ = build_system(g)
+    H2, b2, _ = build_system(g)
+    again = pgo_solve(g, **kw)
+    print(f"pgo_solvers: nodes={g.X.shape[0]} edges={g.w.shape[0]} cg_iters=64 "
+          f"float32: max_abs_err_cg_vs_dense={err32} dense_vs_float64={off['dense']} "
+          f"cg_vs_float64={off['cg']} cost dense={float(dense.cost)} float64={float(dense64.cost)} "
+          f"(relative {cost_rel}) accepted dense={dense.accepted.int().tolist()} "
+          f"cg={cg.accepted.int().tolist()} float64={dense64.accepted.int().tolist()} "
+          f"float64: max_abs_err_cg_vs_dense={err64} dense_s={t1 - t0} cg_s={t2 - t1} (host clock) "
+          f"build_system_repeats_max_abs_diff H={float((H1 - H2).abs().max())} "
+          f"b={float((b1 - b2).abs().max())} "
+          f"dense_solve_repeats_max_abs_diff={float((again.X - dense.X).abs().max())} "
+          f"leg_solve_vs_dense_solve={float((leg.result.X - dense.X).abs().max())}", flush=True)
+    check(bool(torch.isfinite(cg.X).all()) and bool(torch.isfinite(dense.X).all()),
+          "pgo: non-finite pose")
+    check(err32 < 1e-3, f"pgo cg vs dense in f32: X differs by {err32} >= 1e-3")
+    check(off["dense"] < 1e-4, f"pgo dense f32 vs float64: X differs by {off['dense']} >= 1e-4")
+    check(cost_rel < 1e-4, f"pgo dense f32 vs float64: cost differs by {cost_rel} relative")
 
 
 def window_blocks(rig, cfg, m):
@@ -532,6 +693,7 @@ def device_events_per_call(fn, calls: int = 20) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -542,6 +704,7 @@ def main() -> int:
         from sosvo_torch.kernels.match_cuda import match_stats_cuda
         from sosvo_torch.kernels.schur_cuda import schur_reduce_cuda
         from sosvo_torch.tools.workload import card_info, load_preset
+        from sosvo_torch.vo.loop_closure import keyframe_indices
         from sosvo_torch.vo.pipeline import stereo_triangulate
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the repository root",
@@ -591,25 +754,39 @@ def main() -> int:
     # 3. frame-to-frame replay at bench.py's shape
     launches = {"c1_bench_shape": replay_phase(
         "c1_bench_shape", c1, c1_run["n_frames"], c1_run["n_landmarks"], 0.02, device,
-        timed_reps=5)}
+        timed_reps=5)[0]}
 
     # 4. frame-to-frame replay at c3's sizes, observation mode
     print("replay c3_sizes: observation mode at c3's K, H, frames and landmarks -- "
-          "not the c3 image pipeline (frontend and loop closure are not ported)", flush=True)
-    launches["c3_sizes_observations"] = replay_phase(
+          "not the c3 image pipeline (its frontend is not ported)", flush=True)
+    c3_f2f_m, c3_f2f_rig, c3_f2f_scene, c3_f2f_obs, c3_f2f_outs = replay_phase(
         "c3_sizes_observations", c3, c3_run["n_frames"], c3_run["n_landmarks"], 0.2, device,
         timed_reps=2)
+    launches["c3_sizes_observations"] = c3_f2f_m
 
     # 5. the slice's main path: c2 with keyframed window BA, full width
-    c2_m, c2_s, c2_rig, _, c2_obs, c2_final = ba_replay_phase(
+    c2_m, c2_s, c2_rig, _, c2_obs, c2_final, _ = ba_replay_phase(
         "c2_ba_observations", c2, c2_run["n_frames"], c2_run["n_landmarks"], 0.02, device,
         timed_reps=3, vs_f2f=True)
 
     # 6. BA replay at c3's sizes
-    c3_m, c3_s, c3_rig, _, c3_obs, c3_final = ba_replay_phase(
+    c3_m, c3_s, c3_rig, c3_scene, c3_obs, c3_final, c3_outs = ba_replay_phase(
         "c3_sizes_ba_observations", c3, c3_run["n_frames"], c3_run["n_landmarks"], 0.02, device,
         timed_reps=1, vs_f2f=False)
     launches.update(c2_ba_observations=c2_m, c3_sizes_ba_observations=c3_m)
+
+    # 6c. c3's loop-closure leg on the BA replay, over its own keyframes
+    kf_ba = np.nonzero(c3_outs.is_keyframe.cpu().numpy())[0]
+    leg_ba, leg_ba_m, leg_ba_s = pgo_phase("c3_pgo_leg_ba", c3, c3_rig, c3_scene, c3_obs,
+                                           c3_outs.vo.T_world, kf_ba, "ba", device)
+    loop_match, loop_schur = loop_shape_kernels(c3, c3_rig, c3_obs, kf_ba, leg_ba, device)
+    pgo_solvers(c3, leg_ba)
+
+    # 6d. the same leg on the frame-to-frame replay of phase 4 (stride keyframes)
+    kf_f2f = keyframe_indices(c3_run["n_frames"], c3.keyframe_every)
+    _, leg_f2f_m, leg_f2f_s = pgo_phase("c3_pgo_leg_f2f", c3, c3_f2f_rig, c3_f2f_scene,
+                                        c3_f2f_obs, c3_f2f_outs.T_world, kf_f2f, "f2f", device)
+    launches.update(c3_pgo_leg_ba=leg_ba_m, c3_pgo_leg_f2f=leg_f2f_m)
 
     # 6b. BA replay through a sensor dropout: relocalisation on the card
     drop_m, drop_s = ba_dropout_phase(c2, c2_run["n_landmarks"], device)
@@ -649,7 +826,7 @@ def main() -> int:
         "random_map_association_4096x1024", random_problem(gen, 4096, 1024, device, planted=700),
         0.0, c1)
     lib512 = matcher_library_ms("512x512", 512, 512, device)
-    matcher_library_ms("2048x2048", 2048, 2048, device)
+    lib2048 = matcher_library_ms("2048x2048", 2048, 2048, device)
 
     m_main = results["c1_512_stereo"]
     s_main = schur["c2_W5_L512"]
@@ -669,25 +846,30 @@ def main() -> int:
         {"name": "match_hamming", "route": "cuda",
          "source": "sosvo_torch/csrc/match_hamming.cu",
          "replaces": "sosvo/kernels/match_pallas.py:162",
-         "launches": c2_m, "launches_by_path": launches,
-         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+         "launches": leg_ba_m, "launches_by_path": launches,
+         "max_abs_err": max(r["max_abs_err"] for r in (*results.values(), loop_match)),
          "ms": m_main["ms"], "plain_ms": m_main["plain_ms"], "bound_ms": m_main["bound_ms"],
          "bound_us": m_main["bound_ms"] * 1e3, "bound_by": m_main["bound_by"],
          "library_ms": lib512, "shape": "512x512 stereo (c1/c2 K=512, band 0.06)",
          "device_events_per_call": m_events,
-         "tensor_core_route": "b1: mma.sync m16n8k256 .and.popc"},
+         "tensor_core_route": "b1: mma.sync m16n8k256 .and.popc",
+         "loop_shape": dict(loop_match, library_ms=lib2048, bound_us=loop_match["bound_ms"] * 1e3,
+                            shape="2048x2048 loop pair (c3 leg, no band)")},
         {"name": "schur_reduce", "route": "cuda",
          "source": "sosvo_torch/csrc/schur_reduce.cu",
          "replaces": "sosvo/kernels/schur_pallas.py:106",
-         "launches": c2_s,
+         "launches": leg_ba_s,
          "launches_by_path": {"c2_ba_observations": c2_s, "c3_sizes_ba_observations": c3_s,
-                              "c2_ba_dropout": drop_s},
-         "max_abs_err": max(r["max_abs_err"] for r in schur.values()),
+                              "c2_ba_dropout": drop_s, "c3_pgo_leg_ba": leg_ba_s,
+                              "c3_pgo_leg_f2f": leg_f2f_s},
+         "max_abs_err": max(r["max_abs_err"] for r in (*schur.values(), loop_schur)),
          "ms": s_main["ms"], "plain_ms": s_main["plain_ms"], "bound_ms": s_main["bound_ms"],
          "bound_us": s_main["bound_ms"] * 1e3, "bound_by": s_main["bound_by"],
          "library_ms": s_main["library_ms"], "shape": "W=5, L=512 (late c2 window)",
          "device_events_per_call": s_events, "cluster_size": cluster,
-         "clusters_at_shape": clusters},
+         "clusters_at_shape": clusters,
+         "loop_shape": dict(loop_schur, bound_us=loop_schur["bound_ms"] * 1e3,
+                            shape="W=2, L=2048 two-frame loop window (c3 leg)")},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

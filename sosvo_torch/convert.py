@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from sosvo_torch.backend.ba import BAWindow
+from sosvo_torch.backend.pose_graph import PoseGraph
 from sosvo_torch.sensor.model import ViewParams
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
@@ -103,3 +104,18 @@ def ba_state_from_numpy(state, generator: torch.Generator,
 def ba_window_from_numpy(win, device: torch.device | str | None = None) -> BAWindow:
     """A `BAWindow`-shaped object -> the port's."""
     return BAWindow(*(_t(getattr(win, f), device, torch.float32) for f in BAWindow._fields))
+
+
+def loop_edges_from_numpy(ei, ej, T_meas, w, device: torch.device | str | None = None):
+    """Edges (ei, ej, T_meas, w) as numpy or jax arrays -> the port's
+    (int64 endpoints, f32 transforms and weights)."""
+    return (_t(ei, device, torch.int64), _t(ej, device, torch.int64),
+            _t(T_meas, device, torch.float32), _t(w, device, torch.float32))
+
+
+def pose_graph_from_numpy(g, device: torch.device | str | None = None) -> PoseGraph:
+    """A `PoseGraph`-shaped object -> the port's."""
+    ei, ej, T_meas, w = loop_edges_from_numpy(g.ei, g.ej, g.T_meas, g.w, device)
+    return PoseGraph(X=_t(g.X, device, torch.float32),
+                     node_valid=_t(g.node_valid, device, torch.bool),
+                     ei=ei, ej=ej, T_meas=T_meas, w=w)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+_EPS = 1e-8
+
 
 def norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm as sqrt(sum(x * x)), the reduction `jnp.linalg.norm` uses."""
@@ -26,6 +28,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         torch.stack([wz, z, -wx], dim=-1),
         torch.stack([-wy, wx, z], dim=-1),
     ], dim=-2)
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of `hat`: skew-symmetric 3x3 -> 3-vector."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _sinc_coeffs(theta2: torch.Tensor):
@@ -69,6 +76,80 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
     t = (V @ v[..., None])[..., 0]
     return rt_to_mat(R, t)
+
+
+def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w, x, y, z), branch-free (Shepperd).
+
+    All four candidate quaternions are formed and the one keyed by the
+    largest of (trace, m00, m11, m22) is gathered (the first on ties, as
+    `jnp.argmax`); the sign is canonicalised to w >= 0.
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, _EPS))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], dim=-1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], dim=-1)
+
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(qs, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    q = q / torch.clamp_min(norm(q, keepdim=True), _EPS)
+    return q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Logarithm map SO(3) -> so(3) through the Shepperd quaternion:
+    w = 2 atan2(|q_vec|, q_w) q_vec / |q_vec|, with 2 / q_w as the scale
+    where |q_vec| < 1e-6 (both branches finite, so `where` selects)."""
+    q = mat_to_quat(R)
+    qw = q[..., 0]
+    qv = q[..., 1:]
+    vn = norm(qv)
+    theta = 2.0 * torch.atan2(vn, qw)
+    small = vn < 1e-6
+    scale = torch.where(small, 2.0 / torch.clamp_min(qw, 0.5),
+                        theta / torch.where(small, torch.ones_like(vn), vn))
+    return scale[..., None] * qv
+
+
+def _vinv_coef(theta2: torch.Tensor) -> torch.Tensor:
+    """V^-1's W^2 coefficient, (1 - (t/2) cot(t/2)) / t^2, from t^2: its
+    series 1/12 + t^2/720 + t^4/30240 where t^2 < 0.5, the half-angle form
+    above; within 2.2e-6 relative in f32 at every angle.
+
+    The reference's closed form (1 - A / (2B)) / t^2, which it uses from
+    t^2 = 1e-6 up, takes 1 - cos t in f32 and cancels: at t ~ 1e-3 rad it
+    is off by up to 6.9e5 times (scripts/pgo_precision.py)."""
+    small = theta2 < 0.5
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    half = 0.5 * torch.sqrt(theta2_safe)
+    closed = (1.0 - half * torch.cos(half) / torch.sin(half)) / theta2_safe
+    return torch.where(small, 1.0 / 12.0 + theta2 / 720.0 + theta2 * theta2 / 30240.0, closed)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """Logarithm map SE(3) -> se(3): 4x4 -> (omega, v), with
+    V^-1 = I - W/2 + coef W^2 (`_vinv_coef`)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    w = so3_log(R)
+    W = hat(w)
+    coef = _vinv_coef(torch.sum(w * w, dim=-1))
+    Vinv = _eye3_like(W) - 0.5 * W + coef[..., None, None] * (W @ W)
+    v = (Vinv @ t[..., None])[..., 0]
+    return torch.cat([w, v], dim=-1)
 
 
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

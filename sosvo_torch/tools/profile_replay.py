@@ -1,6 +1,6 @@
 """Where a replay's time goes on the card: torch.profiler over one replay.
 
-    python -m sosvo_torch.tools.profile_replay [--ba]
+    python -m sosvo_torch.tools.profile_replay [--ba | --pgo]
     python -m sosvo_torch.tools.profile_replay --kernels [TREE ...] [--rounds N]
 
 For bench.py's c1 workload (10 frames) and c3's sizes in observation mode
@@ -23,6 +23,14 @@ BA, relocalisation) labelled beside the frame step's, so a keyframe's BA
 can be set against the frame step; then the Schur kernel's device time per
 call against its plain version on a late c2 window (W=5, L=512).
 
+With --pgo, c3's loop-closure leg (`tools/workload.py:pgo_leg`: 160
+candidate pairs, 300 inliers, DCS) over the keyframes of a BA replay at
+c3's sizes (200 frames, 50 keyframes), as chip_smoke.py's phase 6c runs it:
+the leg's host-clock seconds unprofiled, its device time and device busy
+share, and host ms per call of its stages (keyframe stereo features,
+signatures + top-k, and per pair the match, the RANSAC and the two-frame
+BA, then the PGO solve).
+
 With --kernels, both kernels alone at every main-path shape, for each
 source TREE (the root of a checkout of the port; `.` for this one), one
 process per tree, in turns (A B, B A, ...): device us per call and device
@@ -30,8 +38,10 @@ events per call (profiler over 50 calls) and wrapper ms (CUDA events over
 200 back-to-back calls). Matcher: the stereo and temporal matches of a c1
 frame (K=512) and of a frame at c3's sizes (K=2048), and the map
 associations L x K at 512x512 (c2), 1024x2048 (c3 sizes) and 4096x1024
-(c5) on random descriptors with 40 planted matches; Schur: random SPD
-windows at W5/L512 (c2), W5/L1024 (c3 sizes) and W8/L4096 (c5). The worker
+(c5) on random descriptors with 40 planted matches, and c3's loop pair
+(the stereo features of frames 0 and 100 at c3's sizes, 2048x2048, no
+band); Schur: random SPD windows at W5/L512 (c2), W5/L1024 (c3 sizes),
+W8/L4096 (c5) and W2/L2048 (c3's two-frame loop window). The worker
 uses only entry points that every tree of the port has. Then, in this
 process: the library yardstick of each shape (one torch.matmul of the same
 product, which the port never calls), the launch floors (probes with no
@@ -67,6 +77,12 @@ from sosvo_torch.vo import ba_pipeline, pipeline
 
 STAGES = {"stereo_triangulate": "stereo match + triangulate", "ransac_rigid": "rigid RANSAC",
           "refine_pose_bearings": "refine", "_gate_check": "essential gate"}
+PGO_STAGES = {"_kf_features": "loop: keyframe stereo features",
+              "keyframe_signatures": "loop: signatures + top-k",
+              "select_loop_candidates": "loop: signatures + top-k",
+              "_match": "loop: pair match", "ransac_rigid": "loop: pair RANSAC",
+              "ba_solve": "loop: pair two-frame BA",
+              "pgo_solve": "pgo: solve (10 GN iterations)"}
 BA_STAGES = {"step_full": "frame step (frame to frame)",
              "insert_keyframe": "keyframe: map association + insertion",
              "run_window_ba": "keyframe: window BA", "try_relocalize": "relocalisation"}
@@ -128,6 +144,43 @@ def profile_replay(label: str, preset: str, n_frames: int | None, device,
         if e.key.startswith("stage: ") and e.device_type == torch.autograd.DeviceType.CPU:
             print(f"  host {e.key[7:]}: calls={e.count} "
                   f"ms_per_frame={e.cpu_time_total / 1e3 / n_frames} "
+                  f"ms_per_call={e.cpu_time_total / 1e3 / e.count}", flush=True)
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
+                                    max_name_column_width=50), flush=True)
+
+
+def profile_pgo(device) -> None:
+    """c3's loop-closure leg over a BA replay at c3's sizes (see the module
+    docstring): one warm-up leg, one timed, one profiled."""
+    from sosvo_torch.tools import workload
+    from sosvo_torch.vo import loop_closure
+
+    _label(loop_closure, PGO_STAGES)
+    cfg, run = load_preset("c3_host_pgo")
+    rig, scene, obs = make_workload(cfg, run["n_frames"], run["n_landmarks"], device)
+    _, outs = ba_replayer(cfg, rig, scene, obs, device)()
+    kf_idx = torch.nonzero(outs.is_keyframe).flatten().cpu().numpy()
+
+    def leg():
+        return workload.pgo_leg(cfg, rig, obs, outs.vo.T_world, kf_idx)
+
+    leg()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = leg()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        leg()
+        torch.cuda.synchronize()
+    dev = _device_events(prof)
+    dev_s = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+    print(f"c3 loop-closure leg over the BA replay: keyframes={len(kf_idx)} "
+          f"candidates={cfg.loop_candidates} n_loops={int(out.n_loops)} leg_s_unprofiled={wall} "
+          f"device_s={dev_s} device_busy_share={dev_s / wall} device_events={len(dev)}", flush=True)
+    for e in sorted(prof.key_averages(), key=lambda e: e.key):
+        if e.key.startswith("stage: ") and e.device_type == torch.autograd.DeviceType.CPU:
+            print(f"  host {e.key[7:]}: calls={e.count} ms_total={e.cpu_time_total / 1e3} "
                   f"ms_per_call={e.cpu_time_total / 1e3 / e.count}", flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
                                     max_name_column_width=50), flush=True)
@@ -214,6 +267,12 @@ for label, preset in (("512", "c1_cpu_smoke"), ("2048", "c3_host_pgo")):
     report("matcher", f"{label}_stereo", lambda: match_stats_cuda(*st, band=band))
     report("matcher", f"{label}_temporal",
            lambda: match_stats_cuda(f0.desc_top, f1.desc_top, v0, v1))
+# c3's loop pair: two keyframes' stereo features 100 frames apart, no band
+cfg, run = load_preset("c3_host_pgo")
+rig, _, obs = make_workload(cfg, 101, run["n_landmarks"], dev)
+fa, fb = obs.frame(0), obs.frame(100)
+va, vb = stereo_triangulate(rig, fa, cfg)[4], stereo_triangulate(rig, fb, cfg)[4]
+report("matcher", "loop_pair_2048x2048", lambda: match_stats_cuda(fa.desc_top, fb.desc_top, va, vb))
 for ka, kb in ((512, 512), (1024, 2048), (4096, 1024)):
     da = torch.randint(-2**31, 2**31, (ka, 8), generator=gen, dtype=torch.int32, device=dev)
     db = torch.randint(-2**31, 2**31, (kb, 8), generator=gen, dtype=torch.int32, device=dev)
@@ -221,7 +280,7 @@ for ka, kb in ((512, 512), (1024, 2048), (4096, 1024)):
     va = torch.rand(ka, generator=gen, device=dev) < 0.9
     vb = torch.rand(kb, generator=gen, device=dev) < 0.9
     report("matcher", f"association_{ka}x{kb}", lambda: match_stats_cuda(da, db, va, vb))
-for W, L in ((5, 512), (5, 1024), (8, 4096)):
+for W, L in ((5, 512), (5, 1024), (8, 4096), (2, 2048)):
     J = torch.randn((L, 6, 3), generator=gen, device=dev)
     H_ll = torch.einsum("lri,lrj->lij", J, J) + torch.eye(3, device=dev)
     G = torch.randn((W, 8, 6), generator=gen, device=dev)
@@ -233,6 +292,7 @@ for W, L in ((5, 512), (5, 1024), (8, 4096)):
 """
 
 MATCHER_SHAPES = ((512, 512), (1024, 2048), (2048, 2048), (4096, 1024))  # the main path's ka x kb
+SCHUR_SHAPES = ((5, 512), (5, 1024), (8, 4096), (2, 2048))  # W, L; W2/L2048: c3's loop window
 
 
 def library_yardsticks(device) -> None:
@@ -250,7 +310,7 @@ def library_yardsticks(device) -> None:
                                            dtype=torch.int32, device=device)).T.contiguous()
         print(f"library matcher {ka}x{kb}: torch.matmul ({ka}x256)@(256x{kb}) f32 "
               f"ms={cuda_ms(lambda: torch.matmul(a, bt), 200)}", flush=True)
-    for W, L in ((5, 512), (5, 1024), (8, 4096)):
+    for W, L in SCHUR_SHAPES:
         A = torch.randn((6 * W, 3 * L), generator=gen, device=device)
         H = torch.randn((3 * L, 6 * W), generator=gen, device=device)
         print(f"library schur W{W}_L{L}: torch.matmul ({6 * W}x{3 * L})@({3 * L}x{6 * W}) f32 "
@@ -287,7 +347,7 @@ def launch_floor(device) -> None:
         print(f"launch floor: ticket grid of the matcher at {ka}x{kb} ({grid[0]}x{grid[1]} blocks "
               f"of {grid[2]}) {probe(lib.sosvo_ticket_kernel, ka, kb, ticket.data_ptr())}", flush=True)
     cluster, resident = schur_cuda.cluster_shape(device)
-    for W, L in ((5, 512), (5, 1024), (8, 4096)):
+    for W, L in SCHUR_SHAPES:
         clusters, tile, groups = schur_cuda.schedule(W, L, cluster, resident)
         smem = schur_cuda.smem_bytes(W, tile, groups)
         print(f"launch floor: Schur clusters at W{W}_L{L} ({clusters} x {cluster} CTAs, {smem} B) "
@@ -367,6 +427,7 @@ def wrapper_host_breakdown(device) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ba", action="store_true", help="profile the window-BA replay")
+    ap.add_argument("--pgo", action="store_true", help="profile c3's loop-closure leg")
     ap.add_argument("--kernels", nargs="*", metavar="TREE",
                     help="the kernels alone at every main-path shape, for each source tree "
                          "(none: only the yardsticks, the launch floor and the host breakdown)")
@@ -380,6 +441,9 @@ def main() -> None:
         library_yardsticks(device)
         launch_floor(device)
         wrapper_host_breakdown(device)
+        return
+    if args.pgo:
+        profile_pgo(device)
         return
     _label_stages()
     if args.ba:

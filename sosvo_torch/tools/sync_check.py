@@ -7,11 +7,16 @@ Runs each workload once to warm up, then once under
 synchronising calls, per replay and per frame, grouped by the port's source
 line: bench.py's c1 workload frame to frame (configs/c1_cpu_smoke.json, 10
 frames), and the keyframed window-BA replay of configs/c2_chip_ba.json in
-observation mode (its first 20 frames: 5 keyframes, 4 window solves). The
-BA replay is expected to sync once per frame at the lazy gate, once per
-frame at the relocalisation predicate once the map holds a keyframe, once
-at its start (reading the frame and keyframe counters), and never inside
-`insert_keyframe` or `ba_solve`. The debug mode is PyTorch's own and does
+observation mode (its first 20 frames: 5 keyframes, 4 window solves), and
+c3's loop-closure leg (`tools/workload.py:pgo_leg`: 160 candidate pairs,
+300 inliers, DCS) over a frame-to-frame replay at c3's sizes (K=2048,
+H=1024, 200 frames, 50 stride keyframes). The BA replay is expected to
+sync once per frame at the lazy gate, once per frame at the relocalisation
+predicate once the map holds a keyframe, once at its start (reading the
+frame and keyframe counters), and never inside `insert_keyframe` or
+`ba_solve`; the leg only where its keyframe and governing-keyframe indices
+go from the host to the card (3 per leg), never per pair and never inside
+`pgo_solve` (n_loops stays on the device). The debug mode is PyTorch's own and does
 not see every sync: a blocking host->device copy of a Python list, for
 one, passes unflagged.
 """
@@ -29,12 +34,16 @@ from sosvo_torch.tools.workload import (
     card_info,
     load_preset,
     make_workload,
+    pgo_leg,
     replayer,
 )
 from sosvo_torch.utils.device import default_device
+from sosvo_torch.vo.loop_closure import keyframe_indices
 
 
-def count_syncs(label: str, replay, n_frames: int) -> None:
+def count_syncs(label: str, replay, n_frames: int, unit: str = "frame") -> None:
+    """Syncs of one run of `replay` after a warm-up run, in all and per
+    `unit` (n_frames of them), by source line."""
     replay()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -44,8 +53,8 @@ def count_syncs(label: str, replay, n_frames: int) -> None:
         torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     where = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
-    print(f"syncs in one {n_frames}-frame {label} replay: {len(syncs)} "
-          f"({len(syncs) / n_frames} per frame)", flush=True)
+    print(f"syncs in one {label} run ({n_frames} {unit}s): {len(syncs)} "
+          f"({len(syncs) / n_frames} per {unit})", flush=True)
     for loc, n in where.most_common():
         print(f"  {n} at {loc}", flush=True)
 
@@ -60,6 +69,12 @@ def main() -> None:
     n_frames = 20
     rig, scene, obs = make_workload(cfg, n_frames, run["n_landmarks"], device)
     count_syncs("c2 window-BA", ba_replayer(cfg, rig, scene, obs, device), n_frames)
+    cfg, run = load_preset("c3_host_pgo")
+    rig, scene, obs = make_workload(cfg, run["n_frames"], run["n_landmarks"], device)
+    _, outs = replayer(cfg, rig, scene, obs, device)()
+    kf_idx = keyframe_indices(run["n_frames"], cfg.keyframe_every)
+    count_syncs("c3 loop-closure leg", lambda: pgo_leg(cfg, rig, obs, outs.T_world, kf_idx),
+                cfg.loop_candidates, unit="candidate pair")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ A workload is a config preset from `configs/` in observation mode, a scene
 and its per-frame observations at 0.3 px pixel noise and 2 % descriptor bit
 flips (bench.py's), all drawn from one seeded generator on the device. It
 is replayed frame to frame (`replayer`) or with keyframed window BA
-(`ba_replayer`).
+(`ba_replayer`). `pgo_leg` closes loops over a replayed trajectory as
+the JAX package's c3 command line does after its replay.
 """
 
 from __future__ import annotations
@@ -14,12 +15,14 @@ import json
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from sosvo_torch.sensor.rig import default_rig
 from sosvo_torch.synth.scene import make_scene, observe_sequence
 from sosvo_torch.utils.config import PipelineConfig, load_pipeline_config
 from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
+from sosvo_torch.vo.loop_closure import LoopClosure, close_loops
 from sosvo_torch.vo.pipeline import run_replay
 from sosvo_torch.vo.state import init_track_state
 
@@ -65,6 +68,18 @@ def ba_replayer(cfg: PipelineConfig, rig, scene, obs, device):
         state = init_ba_state(cfg, gen, T0=scene.poses[0], device=device)
         return run_replay_ba(rig, cfg, state, obs)
     return replay
+
+
+def pgo_leg(cfg: PipelineConfig, rig, obs, T_world: torch.Tensor,
+            kf_idx: np.ndarray) -> LoopClosure:
+    """Loop closure and PGO over a replayed trajectory with the preset's
+    loop settings (`loop_candidates`, 0 = all pairs, `loop_min_inliers`,
+    `pgo_robust`, `pgo_robust_delta`), min_gap=3 and 10 GN iterations, as
+    `sosvo/cli.py` passes them to `pgo_refine_trajectory`; RANSAC draws from
+    a generator seeded 17 on the trajectory's device."""
+    return close_loops(rig, cfg, obs, T_world, min_gap=3, min_inliers=cfg.loop_min_inliers,
+                       iters=10, max_candidates=cfg.loop_candidates or None,
+                       robust=cfg.pgo_robust, robust_delta=cfg.pgo_robust_delta, kf_idx=kf_idx)
 
 
 def card_info() -> str:

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from sosvo_torch import convert
+from sosvo_torch.backend.pose_graph import PoseGraph, pgo_solve
+from sosvo_torch.geom.lie import se3_exp
 from sosvo_torch.sensor.model import ViewParams
 from sosvo_torch.sensor.rig import default_rig
 from sosvo_torch.synth import scene
@@ -17,6 +19,7 @@ from sosvo_torch.utils.config import PipelineConfig
 from sosvo_torch.utils.device import default_device
 from sosvo_torch.vo.ba_pipeline import init_ba_state
 from sosvo_torch.vo.keyframes import init_map_state
+from sosvo_torch.vo.loop_closure import pgo_refine_trajectory
 from sosvo_torch.vo.state import init_track_state
 
 ENTRY_POINTS = {
@@ -36,6 +39,10 @@ ENTRY_POINTS = {
         type("Win", (), dict(X=np.eye(4)[None], landmarks=np.zeros((1, 3)),
                              rays=np.zeros((1, 1, 2, 3)), weights=np.zeros((1, 1, 2)),
                              viewpoints=np.zeros((2, 3))))(), **d),
+    "pose_graph_from_numpy": lambda **d: convert.pose_graph_from_numpy(
+        type("Graph", (), dict(X=np.eye(4)[None].repeat(2, 0), node_valid=np.ones(2, bool),
+                               ei=np.ones(1, np.int32), ej=np.zeros(1, np.int32),
+                               T_meas=np.eye(4)[None], w=np.ones(1)))(), **d),
 }
 
 
@@ -56,3 +63,35 @@ def test_entry_point_runs_on_the_cpu_when_asked(name):
 def test_default_device_is_cuda_when_a_card_is_present(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert default_device() == torch.device("cuda")
+
+
+def _chain_graph(n: int = 4) -> PoseGraph:
+    xi = torch.zeros((n, 6))
+    xi[:, 3] = torch.arange(n, dtype=torch.float32) * 0.1
+    X = se3_exp(xi)
+    ei, ej = torch.arange(1, n), torch.arange(0, n - 1)
+    return PoseGraph(X=se3_exp(0.01 * torch.ones((n, 6))) @ X,
+                     node_valid=torch.ones(n, dtype=torch.bool), ei=ei, ej=ej,
+                     T_meas=X[ei] @ torch.linalg.inv(X[ej]), w=torch.ones(n - 1))
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_pgo_solve_follows_its_tensors(solver, monkeypatch):
+    """No card and no device argument: pgo_solve runs where its graph is."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    res = pgo_solve(_chain_graph(), iters=3, solver=solver, robust="dcs")
+    assert all(x.device.type == "cpu" for x in res)
+    assert bool(torch.isfinite(res.X).all())
+
+
+def test_pgo_refine_trajectory_follows_its_tensors(monkeypatch):
+    """A tiny CPU replay closes its loops on the CPU with no card: the
+    default RANSAC generator is made on the tensors' device."""
+    rig = default_rig(device="cpu")
+    sc = scene.make_scene(torch.Generator().manual_seed(0), 16, 512, device="cpu")
+    obs = scene.observe_sequence(rig, sc, 64, torch.Generator().manual_seed(1), 0.3, 0.02)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    T, n_loops = pgo_refine_trajectory(rig, PipelineConfig(), obs, sc.poses, min_gap=2,
+                                       min_inliers=8, iters=2)
+    assert T.device.type == "cpu" and n_loops.device.type == "cpu"
+    assert T.shape == sc.poses.shape and bool(torch.isfinite(T).all())

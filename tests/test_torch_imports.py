@@ -15,6 +15,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 import sosvo_torch
 names = [m.name for m in pkgutil.walk_packages(sosvo_torch.__path__, "sosvo_torch.")]
+assert {"sosvo_torch.backend.pose_graph", "sosvo_torch.vo.loop_closure"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "sosvo" or m.startswith("sosvo.")
@@ -28,4 +29,5 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 39  # every module was walked, the BA slice's too
+    # every module was walked, the loop-closure slice's too (pose_graph, loop_closure)
+    assert int(out.stdout.strip()) >= 44
