@@ -30,8 +30,7 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      observations;
   6. the same BA replay at c3's sizes (K=2048, H=1024, W=5, L=1024, 200
      frames): pose_ok 199/199, 50 keyframes, 245 Schur launches, ATE < 0.02 m
-     (observation mode: not the c3 image pipeline, whose frontend is not
-     ported);
+     (observation mode; the preset's image pipeline is phase 7c);
  6c. c3's loop-closure leg on that BA replay, as sosvo/cli.py runs it after
      a c3 replay: `pgo_refine_trajectory` over the replay's keyframes with
      configs/c3_host_pgo.json's 160 candidates, 300 inliers and DCS 0.1:
@@ -44,7 +43,8 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      on the leg's pose graph, the f32 solves the leg runs: cg within 1e-3
      of dense, dense within 1e-4 of the same solve in float64 (cost within
      1e-4 relative), and the solve's cost below its initial cost with at
-     least one step accepted;
+     least one step accepted; a second leg over the same trajectory, two
+     builds of the normal equations and two dense solves bit-identical;
  6d. the same leg on phase 4's frame-to-frame replay (stride keyframes):
      ATE below the frame-to-frame ATE, and within the margin of the JAX
      package's figure;
@@ -52,19 +52,43 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      descriptors: relocalisation runs (on at least one frame), pose_ok holds
      outside the dropout, the pose is re-acquired after it, and matcher
      launches are 2 x 24 + keyframes + relocalisations;
-  7. hold the Schur-reduction kernel against its plain version on the card
+ 7a. the image frontend on the card: frames 0 and 30 of c2's rendered
+     sequence (sosvo/cli.py's room and trajectory, rendered on the card)
+     extracted on the card and on the CPU from the same images and LUT
+     values: validity, keypoint slots and descriptors equal (a slot may move
+     only within a near-tie of responses, counted), uv within 1e-3 px, rays
+     within 1e-6; the LUTs of both devices compared; then the matcher
+     against its plain version on the extracted descriptors (stereo in the
+     band, temporal);
+ 7b. c2 as written (configs/c2_chip_ba.json, image mode: rendered 768x768
+     raw images, 128x1024 panoramas, K=512, window BA W=5, L=512, 60
+     frames), with sosvo/cli.py's own RANSAC draws (jax.random's stream
+     from PRNGKey(2), reproduced on the card by tools/reference_draws.py):
+     pose_ok 59/59, 15 keyframes, 70 Schur launches, 2 x 60 + 15 +
+     (relocalisations) matcher launches, ATE < 0.02 m and at most the JAX
+     package's worst seed plus twice the spread (scripts/ref_image_ate.py);
+     frames/s including extraction and the frontend's ms per frame;
+ 7c. c3 image-native (configs/c3_host_pgo.json as written: K=2048, W=5,
+     L=1024, 200 frames), the BA replay held as 7b (pose_ok 199/199, 50
+     keyframes; ATE against the reference alone: the JAX package's own c3
+     image-mode BA ATE is 0.028-0.030 m), then the loop leg over its 50
+     keyframes as 6c runs it, with the reference's per-pair draws, held to
+     the JAX package's ATE after its leg, and two `build_system` calls on
+     the leg's graph bit-identical;
+  8. hold the Schur-reduction kernel against its plain version on the card
      (raw S_off, b_sub and inverses, each relative to its own largest
      magnitude: 1e-5, 1e-5, 1e-4), check that two calls are bit-identical,
      and time kernel, plain version and a library yardstick: a late c2
      window (W=5, L=512), a late window at c3's sizes (W=5, L=1024), a
      synthetic c5-size window (W=8, L=4096), ragged L=1, 100 and 513 and
      W=2; wrong dtype, device and layout must raise;
-  8. hold the matcher against its plain twin at the map-association shapes
+  9. hold the matcher against its plain twin at the map-association shapes
      (L x K: a late c2 keyframe's 512x512, 1024x2048 at c3's sizes, and
      4096x1024), with its bound and a library yardstick.
 Each replay and each loop-closure leg resets the launch counts just before
-it and reads them just after; the kernels line's `launches` are phase 6c's
-(this slice's path), `launches_by_path` every path's. Then it counts each
+it and reads them just after; the kernels line's `launches` are phase 7c's
+(this slice's path, c3 image-native: its BA replay plus its loop leg),
+`launches_by_path` every path's. Then it counts each
 kernel's device events per call (profiler; 1 each: one launch, no fills or
 copies), prints the card's name and power limit, one JSON line describing
 each kernel (with its route: the matcher's b1 tensor-core product, the
@@ -374,14 +398,17 @@ C3_PGO_REF_ATE_M = {"ba": 0.010886459, "f2f": 0.011374913}
 C3_PGO_MARGIN_M = 0.006
 
 
-def pgo_phase(label: str, cfg, rig, scene, obs, T_world, kf_idx, replay: str, device):
+def pgo_phase(label: str, cfg, rig, gt_poses, obs, T_world, kf_idx, ref_ate: float,
+              margin: float, device, must_drop: bool, gumbels=None):
     """c3's loop-closure leg over one replayed trajectory, as sosvo/cli.py
     runs it after a c3 replay (`tools/workload.py:pgo_leg`). Checks the
     launch counts (one matcher launch per keyframe's stereo match and per
     candidate pair, four Schur launches per pair's two-frame BA), finite
     poses, at least one loop, a solve that lowered the cost with at least
-    one step accepted, and the ATE against the JAX reference.
-    Returns (the leg, matcher launches, Schur launches)."""
+    one step accepted, the ATE against the JAX reference's `ref_ate` plus
+    `margin`, and, with `must_drop`, below the ATE before. `gumbels`: the
+    pairs' RANSAC draws (None: the port's generator seeded 17).
+    Returns (the leg, matcher launches, Schur launches, ATE after)."""
     import torch
     from sosvo_torch.eval.ate import ate_rmse
     from sosvo_torch.kernels import match_cuda, schur_cuda
@@ -394,15 +421,15 @@ def pgo_phase(label: str, cfg, rig, scene, obs, T_world, kf_idx, replay: str, de
     match_cuda.reset_launches()
     schur_cuda.reset_launches()
     t0 = time.perf_counter()
-    leg = pgo_leg(cfg, rig, obs, T_world, kf_idx)
+    leg = pgo_leg(cfg, rig, obs, T_world, kf_idx, gumbels)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     m_launches, s_launches = match_cuda.launches, schur_cuda.launches
-    gt = scene.poses[1:, :3, 3]
+    gt = gt_poses[1:, :3, 3]
     before = float(ate_rmse(T_world[1:, :3, 3], gt)[0])
     after = float(ate_rmse(leg.T_corrected[1:, :3, 3], gt)[0])
     n_loops = int(leg.n_loops)
-    limit = C3_PGO_REF_ATE_M[replay] + C3_PGO_MARGIN_M
+    limit = ref_ate + margin
     check(m_launches == n_kf + n_pairs,
           f"{label}: {m_launches} matcher launches, expected {n_kf} + {n_pairs}")
     check(s_launches == 4 * n_pairs, f"{label}: {s_launches} Schur launches, expected 4 x {n_pairs}")
@@ -413,17 +440,47 @@ def pgo_phase(label: str, cfg, rig, scene, obs, T_world, kf_idx, replay: str, de
           f"{label}: the pose-graph solve lowered no cost ({float(res.cost0)} -> {float(res.cost)}, "
           f"accepted {res.accepted.int().tolist()})")
     check(after <= limit, f"{label}: ATE after PGO {after} m above the JAX reference "
-                          f"{C3_PGO_REF_ATE_M[replay]} m + {C3_PGO_MARGIN_M} m")
-    if replay == "f2f":
+                          f"{ref_ate} m + {margin} m")
+    if must_drop:
         check(after < before, f"{label}: ATE after PGO {after} m not below {before} m")
     print(f"pgo {label}: keyframes={n_kf} candidates={n_pairs} min_inliers={cfg.loop_min_inliers} "
           f"robust={cfg.pgo_robust} delta={cfg.pgo_robust_delta} n_loops={n_loops} "
           f"ATE_before_m={before} ATE_after_m={after} (limit {limit}: JAX CPU reference "
-          f"{C3_PGO_REF_ATE_M[replay]} + {C3_PGO_MARGIN_M}) cost0={float(leg.result.cost0)} "
+          f"{ref_ate} + {margin}) cost0={float(leg.result.cost0)} "
           f"cost={float(leg.result.cost)} accepted={leg.result.accepted.int().tolist()} "
           f"leg_s={seconds} (host clock) matcher_launches={m_launches} "
           f"schur_launches={s_launches}", flush=True)
-    return leg, m_launches, s_launches
+    return leg, m_launches, s_launches, after
+
+
+def leg_repeats(label: str, cfg, rig, obs, T_world, kf_idx, leg) -> None:
+    """The same leg run again gives the same bits: the pose-graph assembly
+    sums in a fixed order and every kernel repeats bit for bit."""
+    import torch
+    from sosvo_torch.tools.workload import pgo_leg
+
+    again = pgo_leg(cfg, rig, obs, T_world, kf_idx)
+    same = all(torch.equal(a, b) for a, b in ((again.T_corrected, leg.T_corrected),
+                                              (again.result.X, leg.result.X),
+                                              (again.result.cost, leg.result.cost),
+                                              (again.n_loops, leg.n_loops)))
+    check(same, f"{label}: a second leg over the same trajectory differs")
+    print(f"pgo {label}: a second leg over the same trajectory is bit-identical "
+          f"(T_corrected, X, cost, n_loops)", flush=True)
+
+
+def build_system_repeats(label: str, g) -> None:
+    """Two builds of the normal equations of one pose graph are bit-identical."""
+    import torch
+    from sosvo_torch.backend.pose_graph import build_system
+
+    first, second = build_system(g), build_system(g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("H", "b", "cost"), first, second):
+        check(torch.equal(a, b), f"{label}: two build_system calls differ in {name} "
+                                 f"by {float((a - b).abs().max())}")
+    print(f"build_system {label}: nodes={g.X.shape[0]} edges={g.w.shape[0]} two calls "
+          f"bit-identical in H, b and cost", flush=True)
 
 
 def loop_shape_kernels(cfg, rig, obs, kf_idx, leg, device):
@@ -460,9 +517,9 @@ def pgo_solvers(cfg, leg) -> None:
     iterations) within 1e-3 of the dense one (tests/test_pose_graph.py:165's
     tolerance), and the dense one within 1e-4 of the same solve in float64,
     its cost within 1e-4 relative (the f32 solve stops where a step's gain
-    is below its cost's rounding: 0.8-1.7e-6 relative on the card). Also prints cg against dense in float64,
-    and how far two builds of the normal equations, and two dense solves,
-    differ (`index_add` adds through atomics on the card)."""
+    is below its cost's rounding: 0.8-1.7e-6 relative on the card). Also prints cg against dense in float64;
+    two builds of the normal equations and two dense solves must be
+    bit-identical, and so must the leg's own solve and a re-solve."""
     import torch
     from sosvo_torch.backend.pose_graph import build_system, pgo_solve
 
@@ -500,6 +557,9 @@ def pgo_solvers(cfg, leg) -> None:
     check(bool(torch.isfinite(cg.X).all()) and bool(torch.isfinite(dense.X).all()),
           "pgo: non-finite pose")
     check(err32 < 1e-3, f"pgo cg vs dense in f32: X differs by {err32} >= 1e-3")
+    check(torch.equal(H1, H2) and torch.equal(b1, b2), "pgo: two build_system calls differ")
+    check(torch.equal(again.X, dense.X) and torch.equal(leg.result.X, dense.X),
+          "pgo: two dense solves of the leg's graph differ")
     check(off["dense"] < 1e-4, f"pgo dense f32 vs float64: X differs by {off['dense']} >= 1e-4")
     check(cost_rel < 1e-4, f"pgo dense f32 vs float64: cost differs by {cost_rel} relative")
 
@@ -674,9 +734,208 @@ def launch_counts(gen, device, blocks) -> None:
     print("launch_counts: one per call for each wrapper, none for a refused call", flush=True)
 
 
-def device_events_per_call(fn, calls: int = 20) -> float:
+# The JAX package's ATE (m) for the image-mode presets as sosvo/cli.py runs
+# them, on the CPU (scripts/ref_image_ate.py, seeds 0-2: the seed moves only
+# the replay's RANSAC key, the rendered sequence is one; PERF.md section 5):
+# c2's BA replay, c3's BA replay and c3 after its loop leg. The port's own
+# draws are another seed, so its ATE may reach the worst seed plus twice the
+# largest spread between seeds.
+IMAGE_REF_ATE_M = {"c2_ba": (0.007460933178663254, 0.007471336517482996, 0.00739532383158803),
+                   "c3_ba": (0.028098905459046364, 0.028617585077881813, 0.030325645580887794),
+                   "c3_pgo": (0.01806194894015789, 0.01909755729138851, 0.01914658211171627)}
+
+
+def image_ate_limit(name: str) -> tuple[float, float]:
+    """(worst seed, margin) of one reference figure."""
+    ref = IMAGE_REF_ATE_M[name]
+    return max(ref), 2.0 * (max(ref) - min(ref))
+
+
+def _luts_on(luts, device):
+    """A copy of the frontend's LUTs on another device (the same values)."""
+    from sosvo_torch.frontend.image_frontend import FrontendLUTs
+
+    return FrontendLUTs(*(g._replace(**{f: getattr(g, f).to(device)
+                                        for f in ("lut_uv", "valid", "u0", "v0", "fu", "fv")})
+                          for g in luts))
+
+
+def frontend_phase(cfg, n_frames: int, device, results) -> None:
+    """7a: the image frontend on the card against the port on the CPU.
+
+    Frames 0 and 30 of the preset's rendered sequence (rendered on the card)
+    are extracted on the card and, from the same images and the same LUT
+    values, on the CPU: validity, keypoint slots and descriptors must be
+    equal, except slots whose response lies within 1e-6 of the map's largest
+    magnitude of a neighbouring slot's or of the K-th value (counted; none
+    expected), `uv` within 1e-3 px and rays within 1e-6 (sin/cos differ
+    between the two devices). The LUTs built on each device are compared
+    (within 1e-3 px), and the CPU's extraction on its own LUTs is compared
+    the same way and printed, not held: the LUTs differ by f32 steps of
+    sin/cos, which move the panorama and so the responses by more than the
+    near-tie rule's rounding. Then the matcher kernel against its plain version
+    on the image-extracted descriptors: stereo in the band, and temporal
+    between the two frames."""
+    import torch
+    from sosvo_torch.frontend.detect import gaussian_smooth, harris_response
+    from sosvo_torch.frontend.image_frontend import build_frontend_luts, extract_observations
+    from sosvo_torch.frontend.panorama import warp_panorama
+    from sosvo_torch.sensor.rig import default_rig
+    from sosvo_torch.tools.frontend_parity import slot_mismatches, view_keypoints
+    from sosvo_torch.tools.workload import render_frames
+    from sosvo_torch.vo.pipeline import azimuth_of, stereo_triangulate
+
+    fe, cpu = cfg.frontend, torch.device("cpu")
+    rig, rig_cpu = default_rig(device=device), default_rig(device=cpu)
+    luts = build_frontend_luts(rig, fe)
+    luts_cpu_own = build_frontend_luts(rig_cpu, fe)
+    luts_cpu = _luts_on(luts, cpu)
+    for view in ("top", "bottom"):
+        a, b = getattr(luts_cpu, view), getattr(luts_cpu_own, view)
+        uv_err = float((a.lut_uv - b.lut_uv).abs().max())
+        n_valid = int((a.valid != b.valid).sum())
+        print(f"frontend LUT {view}: card vs CPU lut_uv max_abs_err={uv_err:.3e} px "
+              f"valid_differs={n_valid}/{a.valid.numel()}", flush=True)
+        check(uv_err < 1e-3, f"frontend LUT {view}: card and CPU differ by {uv_err} px")
+    frames = (0, 30)
+    images = render_frames(rig, n_frames, frames, device)
+    torch.cuda.synchronize()
+    extracted = []
+    for f, img in zip(frames, images):
+        got = extract_observations(rig, luts, fe, img)
+        ref = extract_observations(rig_cpu, luts_cpu, fe, img.cpu())
+        own = extract_observations(rig_cpu, luts_cpu_own, fe, img.cpu())
+        kps_got = view_keypoints(luts, fe, img)
+        kps_ref = view_keypoints(luts_cpu, fe, img.cpu())
+        kps_own = view_keypoints(luts_cpu_own, fe, img.cpu())
+        for i, view in enumerate(("top", "bottom")):
+            geom = getattr(luts_cpu, view)
+            scale = float(harris_response(gaussian_smooth(warp_panorama(img.cpu(), geom))).abs().max())
+            kr = kps_ref[i]
+            counts = {}
+            for name, kg, obs in (("card", kps_got[i], got), ("cpu_own_luts", kps_own[i], own)):
+                differ, unexplained = slot_mismatches(kr.rows, kr.cols, kr.response,
+                                                      kg.rows.cpu(), kg.cols.cpu(), fe.pano_width,
+                                                      1e-6 * scale)
+                same = torch.as_tensor(~differ)
+                valid_ok = torch.equal(getattr(obs, f"valid_{view}").cpu()[same],
+                                       getattr(ref, f"valid_{view}")[same])
+                bits = (getattr(obs, f"desc_{view}").cpu()[same]
+                        ^ getattr(ref, f"desc_{view}")[same])
+                n_bits = int(sum(int((bits >> k & 1).sum()) for k in range(32)))
+                uv_err = float((getattr(obs, f"uv_{view}").cpu()[same]
+                                - getattr(ref, f"uv_{view}")[same]).abs().max())
+                ray_err = float((getattr(obs, f"ray_{view}").cpu()[same]
+                                 - getattr(ref, f"ray_{view}")[same]).abs().max())
+                counts[name] = (int(differ.sum()), int(unexplained.sum()), valid_ok, n_bits,
+                                uv_err, ray_err)
+                if name == "card":
+                    check(not unexplained.any(),
+                          f"frontend frame {f} {view}: {int(unexplained.sum())} keypoint slots "
+                          f"differ between card and CPU with no near-tie")
+                    check(valid_ok and n_bits == 0,
+                          f"frontend frame {f} {view}: validity or descriptors of equal slots "
+                          f"differ between card and CPU ({n_bits} bits)")
+                    check(uv_err < 1e-3 and ray_err < 1e-6,
+                          f"frontend frame {f} {view}: uv {uv_err} px or rays {ray_err} apart")
+            n_valid = int(getattr(got, f"valid_{view}").sum())
+            print(f"frontend frame {f} {view}: K={fe.max_features} valid={n_valid} " + " ".join(
+                f"{name}: slots_differ={d} without_near_tie={u} valid_equal={v} "
+                f"desc_bits_differ={nb} uv_max_abs_err={ue:.3e} ray_max_abs_err={re:.3e}"
+                for name, (d, u, v, nb, ue, re) in counts.items()), flush=True)
+        extracted.append(got)
+    f0, f1 = extracted
+    valid0 = stereo_triangulate(rig, f0, cfg)[4]
+    valid1 = stereo_triangulate(rig, f1, cfg)[4]
+    results["c2_images_stereo"] = compare_kernel(
+        "c2_images_frame0_stereo", (f0.desc_top, f0.desc_bottom, f0.valid_top, f0.valid_bottom,
+                                    azimuth_of(f0.ray_top), azimuth_of(f0.ray_bottom)),
+        fe.stereo_band_rad, cfg)
+    results["c2_images_temporal"] = compare_kernel(
+        "c2_images_frame0_frame30_temporal", (f0.desc_top, f1.desc_top, valid0, valid1, None, None),
+        0.0, cfg)
+
+
+def image_ba_phase(label: str, cfg, n_frames: int, ref_name: str, max_ate: float | None,
+                   device, timed_reps: int):
+    """7b / 7c: an image-mode preset as written, with window BA, as
+    sosvo/cli.py runs it: render on the card, then extract every frame and
+    replay (`tools/workload.py:image_ba_replayer`) with the command line's
+    own RANSAC draws (`tools/reference_draws.py`: PRNGKey(2), made on the
+    card), so the ATE compares with the JAX package's seed 0 on the same
+    sequence and random stream. Checks pose_ok on every frame, the stride
+    keyframes, both kernels' launches, and the ATE against the JAX
+    package's worst seed plus twice the spread (and `max_ate` where given);
+    prints the distance to seed 0. Prints frames/s of the replay including
+    extraction and the frontend's ms per frame (host clock, synchronised).
+    Returns (matcher launches, Schur launches, rig, poses, observations,
+    outputs)."""
+    import torch
+    from sosvo_torch.eval.ate import ate_rmse
+    from sosvo_torch.frontend.image_frontend import extract_sequence
+    from sosvo_torch.kernels import match_cuda, schur_cuda
+    from sosvo_torch.tools.reference_draws import replay_draws
+    from sosvo_torch.tools.workload import image_ba_replayer, make_image_workload
+
+    t0 = time.perf_counter()
+    rig, poses, images, luts, obs = make_image_workload(cfg, n_frames, device)
+    draws = replay_draws(n_frames, cfg.ransac.n_hyps, cfg.frontend.max_features, device,
+                         reloc_slots=cfg.ba.max_landmarks)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    replay = image_ba_replayer(cfg, rig, poses, images, luts, device, draws)
+
+    match_cuda.reset_launches()
+    schur_cuda.reset_launches()
+    _, outs = replay()
+    torch.cuda.synchronize()
+    m_launches, s_launches = match_cuda.launches, schur_cuda.launches
+    rmse = float(ate_rmse(outs.vo.T_world[1:, :3, 3], poses[1:, :3, 3])[0])
+    n_ok = int(outs.vo.pose_ok[1:].sum())
+    n_kf = int(outs.is_keyframe.sum())
+    n_reloc = int(outs.reloc_tried.sum())
+    want_kf = (n_frames + cfg.keyframe_every - 1) // cfg.keyframe_every
+    ref, margin = image_ate_limit(ref_name)
+    check(bool(torch.isfinite(outs.vo.T_world).all()), f"{label}: non-finite pose")
+    check(n_ok == n_frames - 1, f"{label}: pose_ok on {n_ok}/{n_frames - 1} frames")
+    check(n_kf == want_kf, f"{label}: {n_kf} keyframes, expected {want_kf}")
+    check(s_launches == (want_kf - 1) * cfg.ba.iters,
+          f"{label}: {s_launches} Schur launches, expected {(want_kf - 1) * cfg.ba.iters}")
+    check(m_launches == 2 * n_frames + n_kf + n_reloc,
+          f"{label}: {m_launches} matcher launches, expected {2 * n_frames} + {n_kf} + {n_reloc}")
+    check(rmse <= ref + margin, f"{label}: ATE {rmse} m above the JAX reference {ref} + {margin}")
+    if max_ate is not None:
+        check(rmse < max_ate, f"{label}: ATE {rmse} m >= {max_ate} m")
+
+    extract_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        extract_sequence(rig, luts, cfg.frontend, images)
+        torch.cuda.synchronize()
+        extract_s.append(time.perf_counter() - t0)
+    med = timed_replays(replay, timed_reps)
+    fe = cfg.frontend
+    print(f"replay {label}: images {rig.image_height}x{rig.image_width} pano "
+          f"{fe.pano_height}x{fe.pano_width} K={fe.max_features} H={cfg.ransac.n_hyps} "
+          f"W={cfg.ba.window} L={cfg.ba.max_landmarks} frames={n_frames} draws=JAX PRNGKey(2) "
+          f"ATE_m={rmse} (JAX seed 0 {IMAGE_REF_ATE_M[ref_name][0]}: "
+          f"{rmse - IMAGE_REF_ATE_M[ref_name][0]:+.3e}; limit {ref + margin}: JAX CPU reference "
+          f"worst {ref} + {margin}"
+          f"{'' if max_ate is None else f'; and < {max_ate}'}) pose_ok={n_ok}/{n_frames - 1} "
+          f"keyframes={n_kf} relocalisations={n_reloc} "
+          f"map_slots={int(outs.n_landmarks[-1])}/{cfg.ba.max_landmarks} "
+          f"matcher_launches={m_launches} schur_launches={s_launches} "
+          f"frontend_ms_per_frame={1e3 * min(extract_s) / n_frames} "
+          f"replay_s_median={med} frames_per_s={n_frames / med} (host clock, extraction "
+          f"included, {timed_reps} runs after one checked run) render_and_extract_setup_s={setup_s}",
+          flush=True)
+    return m_launches, s_launches, rig, poses, obs, outs
+
+
+def device_events_per_call(label: str, fn, calls: int = 20) -> float:
     """Device events (kernels, copies, fills) per call of `fn`, from the
-    profiler over `calls` calls after a warm-up."""
+    profiler over `calls` calls after a warm-up; prints what the profiler
+    recorded (event counts, device event names)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -687,8 +946,11 @@ def device_events_per_call(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    every = prof.events()
+    events = [e for e in every if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
+    print(f"device_events {label}: {len(every)} profiler events over {calls} calls, "
+          f"{len(events)} on the device: {sorted({e.name[:60] for e in events})}", flush=True)
     return len(events) / calls
 
 
@@ -703,7 +965,8 @@ def main() -> int:
         from sosvo_torch.kernels import build, schur_cuda
         from sosvo_torch.kernels.match_cuda import match_stats_cuda
         from sosvo_torch.kernels.schur_cuda import schur_reduce_cuda
-        from sosvo_torch.tools.workload import card_info, load_preset
+        from sosvo_torch.tools.reference_draws import loop_draws
+        from sosvo_torch.tools.workload import card_info, load_image_preset, load_preset
         from sosvo_torch.vo.loop_closure import keyframe_indices
         from sosvo_torch.vo.pipeline import stereo_triangulate
     except ImportError as e:
@@ -757,8 +1020,8 @@ def main() -> int:
         timed_reps=5)[0]}
 
     # 4. frame-to-frame replay at c3's sizes, observation mode
-    print("replay c3_sizes: observation mode at c3's K, H, frames and landmarks -- "
-          "not the c3 image pipeline (its frontend is not ported)", flush=True)
+    print("replay c3_sizes: observation mode at c3's K, H, frames and landmarks "
+          "(the preset's image pipeline runs in phase 7c)", flush=True)
     c3_f2f_m, c3_f2f_rig, c3_f2f_scene, c3_f2f_obs, c3_f2f_outs = replay_phase(
         "c3_sizes_observations", c3, c3_run["n_frames"], c3_run["n_landmarks"], 0.2, device,
         timed_reps=2)
@@ -777,22 +1040,49 @@ def main() -> int:
 
     # 6c. c3's loop-closure leg on the BA replay, over its own keyframes
     kf_ba = np.nonzero(c3_outs.is_keyframe.cpu().numpy())[0]
-    leg_ba, leg_ba_m, leg_ba_s = pgo_phase("c3_pgo_leg_ba", c3, c3_rig, c3_scene, c3_obs,
-                                           c3_outs.vo.T_world, kf_ba, "ba", device)
+    leg_ba, leg_ba_m, leg_ba_s, _ = pgo_phase(
+        "c3_pgo_leg_ba", c3, c3_rig, c3_scene.poses, c3_obs, c3_outs.vo.T_world, kf_ba,
+        C3_PGO_REF_ATE_M["ba"], C3_PGO_MARGIN_M, device, must_drop=False)
+    leg_repeats("c3_pgo_leg_ba", c3, c3_rig, c3_obs, c3_outs.vo.T_world, kf_ba, leg_ba)
     loop_match, loop_schur = loop_shape_kernels(c3, c3_rig, c3_obs, kf_ba, leg_ba, device)
     pgo_solvers(c3, leg_ba)
 
     # 6d. the same leg on the frame-to-frame replay of phase 4 (stride keyframes)
     kf_f2f = keyframe_indices(c3_run["n_frames"], c3.keyframe_every)
-    _, leg_f2f_m, leg_f2f_s = pgo_phase("c3_pgo_leg_f2f", c3, c3_f2f_rig, c3_f2f_scene,
-                                        c3_f2f_obs, c3_f2f_outs.T_world, kf_f2f, "f2f", device)
+    _, leg_f2f_m, leg_f2f_s, _ = pgo_phase(
+        "c3_pgo_leg_f2f", c3, c3_f2f_rig, c3_f2f_scene.poses, c3_f2f_obs, c3_f2f_outs.T_world,
+        kf_f2f, C3_PGO_REF_ATE_M["f2f"], C3_PGO_MARGIN_M, device, must_drop=True)
     launches.update(c3_pgo_leg_ba=leg_ba_m, c3_pgo_leg_f2f=leg_f2f_m)
 
     # 6b. BA replay through a sensor dropout: relocalisation on the card
     drop_m, drop_s = ba_dropout_phase(c2, c2_run["n_landmarks"], device)
     launches["c2_ba_dropout"] = drop_m
 
-    # 7. Schur kernel against its plain version
+    # 7a. the image frontend on the card against the port on the CPU
+    c2i, c2i_run = load_image_preset("c2_chip_ba")
+    c3i, c3i_run = load_image_preset("c3_host_pgo")
+    frontend_phase(c2i, c2i_run["n_frames"], device, results)
+
+    # 7b. c2 as written: image mode, window BA
+    c2i_m, c2i_s, *_ = image_ba_phase("c2_ba_images", c2i, c2i_run["n_frames"], "c2_ba", 0.02,
+                                      device, timed_reps=2)
+
+    # 7c. c3 image-native: window BA, then the loop leg over its keyframes
+    c3i_m, c3i_s, c3i_rig, c3i_poses, c3i_obs, c3i_outs = image_ba_phase(
+        "c3_images_ba", c3i, c3i_run["n_frames"], "c3_ba", None, device, timed_reps=1)
+    kf_c3i = np.nonzero(c3i_outs.is_keyframe.cpu().numpy())[0]
+    leg_c3i, leg_c3i_m, leg_c3i_s, leg_c3i_ate = pgo_phase(
+        "c3_images_pgo_leg", c3i, c3i_rig, c3i_poses, c3i_obs, c3i_outs.vo.T_world, kf_c3i,
+        *image_ate_limit("c3_pgo"), device, must_drop=False,
+        gumbels=loop_draws(c3i.loop_candidates, c3i.ransac.n_hyps, c3i.frontend.max_features,
+                           device))
+    print(f"pgo c3_images_pgo_leg: pair draws=JAX split(PRNGKey(17)); ATE after vs JAX seed 0 "
+          f"{IMAGE_REF_ATE_M['c3_pgo'][0]}: {leg_c3i_ate - IMAGE_REF_ATE_M['c3_pgo'][0]:+.3e}",
+          flush=True)
+    build_system_repeats("c3_images_pgo_leg", leg_c3i.graph)
+    launches.update(c2_ba_images=c2i_m, c3_images_ba=c3i_m, c3_images_pgo_leg=leg_c3i_m)
+
+    # 8. Schur kernel against its plain version
     c2_blocks = window_blocks(c2_rig, c2, c2_final.map)
     c3_blocks = window_blocks(c3_rig, c3, c3_final.map)
     lam = c2.ba.damping_init
@@ -811,7 +1101,7 @@ def main() -> int:
     schur_rejects(c2_blocks)
     launch_counts(gen, device, c2_blocks)
 
-    # 8. matcher at the map-association shapes (L x K)
+    # 9. matcher at the map-association shapes (L x K)
     def association(label, cfg, rig, final, obs, n_frames):
         """The final map against the last keyframe's features."""
         f = obs.frame((n_frames - 1) // cfg.keyframe_every * cfg.keyframe_every)
@@ -831,9 +1121,10 @@ def main() -> int:
     m_main = results["c1_512_stereo"]
     s_main = schur["c2_W5_L512"]
     m_args = main_matcher_args(c1, c1_run["n_landmarks"], device)
-    m_events = device_events_per_call(lambda: match_stats_cuda(*m_args, band=c1.frontend.stereo_band_rad))
+    m_events = device_events_per_call(
+        "matcher", lambda: match_stats_cuda(*m_args, band=c1.frontend.stereo_band_rad))
     lam_t = torch.full((), lam, device=device)
-    s_events = device_events_per_call(lambda: schur_reduce_cuda(*c2_blocks, lam_t))
+    s_events = device_events_per_call("schur", lambda: schur_reduce_cuda(*c2_blocks, lam_t))
     check(m_events == 1.0 and s_events == 1.0,
           f"device events per call: matcher {m_events}, Schur {s_events}; expected 1 each")
     cluster, resident = schur_cuda.cluster_shape(device)
@@ -846,7 +1137,7 @@ def main() -> int:
         {"name": "match_hamming", "route": "cuda",
          "source": "sosvo_torch/csrc/match_hamming.cu",
          "replaces": "sosvo/kernels/match_pallas.py:162",
-         "launches": leg_ba_m, "launches_by_path": launches,
+         "launches": c3i_m + leg_c3i_m, "launches_by_path": launches,
          "max_abs_err": max(r["max_abs_err"] for r in (*results.values(), loop_match)),
          "ms": m_main["ms"], "plain_ms": m_main["plain_ms"], "bound_ms": m_main["bound_ms"],
          "bound_us": m_main["bound_ms"] * 1e3, "bound_by": m_main["bound_by"],
@@ -858,10 +1149,11 @@ def main() -> int:
         {"name": "schur_reduce", "route": "cuda",
          "source": "sosvo_torch/csrc/schur_reduce.cu",
          "replaces": "sosvo/kernels/schur_pallas.py:106",
-         "launches": leg_ba_s,
+         "launches": c3i_s + leg_c3i_s,
          "launches_by_path": {"c2_ba_observations": c2_s, "c3_sizes_ba_observations": c3_s,
                               "c2_ba_dropout": drop_s, "c3_pgo_leg_ba": leg_ba_s,
-                              "c3_pgo_leg_f2f": leg_f2f_s},
+                              "c3_pgo_leg_f2f": leg_f2f_s, "c2_ba_images": c2i_s,
+                              "c3_images_ba": c3i_s, "c3_images_pgo_leg": leg_c3i_s},
          "max_abs_err": max(r["max_abs_err"] for r in (*schur.values(), loop_schur)),
          "ms": s_main["ms"], "plain_ms": s_main["plain_ms"], "bound_ms": s_main["bound_ms"],
          "bound_us": s_main["bound_ms"] * 1e3, "bound_by": s_main["bound_by"],

@@ -17,8 +17,11 @@ Differences from the reference, all forced by eager PyTorch:
     the small-angle `where` guards of the log map. The residual carries a
     unit batch dimension inside the transforms: in forward mode PyTorch
     gives a 0-dim tensor combined with a Python float a float64 tangent.
-  * The scatter-adds into (N, N, 6, 6) blocks are `index_add` over the
-    flattened N * N block index; on the card it adds through atomics.
+  * No scatter-add: the reference's scatters into (N, N, 6, 6) blocks and
+    (N, 6) rows become products with the edges' one-hot endpoint matrices
+    (`build_system` forms H = J^T J from the stacked (6E, 6N) Jacobian), so
+    every sum runs in an order fixed by the shapes and two calls on the
+    card are bit-identical (`index_add` adds through atomics there).
   * The dense solve is `torch.linalg.solve_ex`, the library solve without
     the status read-back that `torch.linalg.solve` makes.
   * No `axis_name`: the edge-sharded solve is not ported.
@@ -130,27 +133,34 @@ def _edge_terms(g: PoseGraph):
     return torch.func.vmap(_edge_jacobians)(g.X[g.ei], g.X[g.ej], g.T_meas, g.w)
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """(M, n) rows of the identity at `idx`."""
+    return (idx[:, None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _scatter_rows(n: int, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """(n, ...) sums of the rows of `src` at `idx` (index_add)."""
-    out = torch.zeros((n,) + src.shape[1:], dtype=src.dtype, device=src.device)
-    return out.index_add(0, idx, src)
+    """(n, ...) sums of the rows of `src` at `idx`, as one product with the
+    one-hot matrix of `idx` (a fixed summation order, no atomics)."""
+    flat = src.reshape(src.shape[0], -1)
+    return (_one_hot(idx, n, src.dtype).T @ flat).reshape((n,) + src.shape[1:])
 
 
 def build_system(g: PoseGraph):
-    """(H (N, N, 6, 6), b (N, 6), cost ()) of the GN normal equations."""
+    """(H (N, N, 6, 6), b (N, 6), cost ()) of the GN normal equations.
+
+    H = J^T J and b = J^T r over the stacked (6E, 6N) edge Jacobian, which
+    holds J_i at node ei's six columns and J_j at ej's (the one-hot products
+    place them exactly: each entry is one Jacobian entry times 1 plus zeros).
+    Every block the reference scatter-adds is a sum over the same edge
+    terms; here each is one matrix product, deterministic on every device."""
     N = g.X.shape[0]
+    E = g.ei.shape[0]
     r, J_i, J_j = _edge_terms(g)
-    Hii = torch.einsum("eri,erj->eij", J_i, J_i)
-    Hjj = torch.einsum("eri,erj->eij", J_j, J_j)
-    Hij = torch.einsum("eri,erj->eij", J_i, J_j)
-    bi = torch.einsum("eri,er->ei", J_i, r)
-    bj = torch.einsum("eri,er->ei", J_j, r)
-    # The four block scatters of the reference, in its order, as one
-    # index_add over the flattened (N * N) block index.
-    idx = torch.cat([g.ei * N + g.ei, g.ej * N + g.ej, g.ei * N + g.ej, g.ej * N + g.ei])
-    H = _scatter_rows(N * N, idx, torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]))
-    b = _scatter_rows(N, torch.cat([g.ei, g.ej]), torch.cat([bi, bj]))
-    return H.reshape(N, N, 6, 6), b, 0.5 * torch.sum(r * r)
+    J = (torch.einsum("erc,en->ernc", J_i, _one_hot(g.ei, N, J_i.dtype))
+         + torch.einsum("erc,en->ernc", J_j, _one_hot(g.ej, N, J_j.dtype))).reshape(6 * E, 6 * N)
+    H = (J.T @ J).reshape(N, 6, N, 6).permute(0, 2, 1, 3)
+    b = (J.T @ r.reshape(6 * E, 1)).reshape(N, 6)
+    return H, b, 0.5 * torch.sum(r * r)
 
 
 def pgo_cost(g: PoseGraph) -> torch.Tensor:

@@ -15,6 +15,9 @@ import torch
 
 from sosvo_torch.backend.ba import BAWindow
 from sosvo_torch.backend.pose_graph import PoseGraph
+from sosvo_torch.frontend.detect import Keypoints
+from sosvo_torch.frontend.image_frontend import FrontendLUTs
+from sosvo_torch.frontend.panorama import PanoGeometry
 from sosvo_torch.sensor.model import ViewParams
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
@@ -119,3 +122,44 @@ def pose_graph_from_numpy(g, device: torch.device | str | None = None) -> PoseGr
     return PoseGraph(X=_t(g.X, device, torch.float32),
                      node_valid=_t(g.node_valid, device, torch.bool),
                      ei=ei, ej=ej, T_meas=T_meas, w=w)
+
+
+def images_from_numpy(images, device: torch.device | str | None = None) -> torch.Tensor:
+    """Rendered raw images (numpy or jax) -> an f32 tensor."""
+    return _t(images, device, torch.float32)
+
+
+def pano_geometry_from_numpy(geom, image_height: int = 768, image_width: int = 768,
+                             device: torch.device | str | None = None) -> PanoGeometry:
+    """A `PanoGeometry`-shaped object -> the port's. The bilinear cell's
+    corner (u0, v0) is decoded from the reference's quad-table index
+    `idx_r0` (even-x0 quads first, then odd-x0 ones, `image_width // 2`
+    per image row), so the port warps with the reference's own cells."""
+    half = image_width // 2
+    idx = np.asarray(geom.idx_r0).astype(np.int64)
+    odd = idx >= image_height * half
+    rem = idx - np.where(odd, image_height * half, 0)
+    v0, m = rem // half, rem % half
+    return PanoGeometry(height=int(geom.height), width=int(geom.width),
+                        min_elevation=float(geom.min_elevation),
+                        max_elevation=float(geom.max_elevation),
+                        lut_uv=_t(geom.lut_uv, device, torch.float32),
+                        valid=_t(geom.valid, device, torch.bool),
+                        u0=_t(2 * m + odd, device, torch.int64), v0=_t(v0, device, torch.int64),
+                        fu=_t(geom.fu, device, torch.float32),
+                        fv=_t(geom.fv, device, torch.float32))
+
+
+def frontend_luts_from_numpy(luts, image_height: int = 768, image_width: int = 768,
+                             device: torch.device | str | None = None) -> FrontendLUTs:
+    """A `FrontendLUTs`-shaped object -> the port's."""
+    return FrontendLUTs(*(pano_geometry_from_numpy(g, image_height, image_width, device)
+                          for g in (luts.top, luts.bottom)))
+
+
+def keypoints_from_numpy(kps, device: torch.device | str | None = None) -> Keypoints:
+    """A `Keypoints`-shaped object -> the port's."""
+    return Keypoints(rows=_t(kps.rows, device, torch.float32),
+                     cols=_t(kps.cols, device, torch.float32),
+                     response=_t(kps.response, device, torch.float32),
+                     valid=_t(kps.valid, device, torch.bool))

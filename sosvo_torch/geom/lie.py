@@ -180,6 +180,11 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ R.transpose(-1, -2) + t[..., None, :]
 
 
+def rotate_dirs(T_or_R: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., N, 3) direction vectors by the rotation part of T (4x4 or 3x3)."""
+    return dirs @ T_or_R[..., :3, :3].transpose(-1, -2)
+
+
 def geodesic_angle(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     """Rotation angle (radians) between two rotation matrices."""
     Rrel = Ra.transpose(-1, -2) @ Rb

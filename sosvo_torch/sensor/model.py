@@ -139,3 +139,26 @@ def lift(view: ViewParams, uv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     valid = (elevation >= view.min_elevation) & (elevation <= view.max_elevation) & (disc > 0.0)
     ray = ray @ _mis_rotation(view).T   # R_mis @ ray, batched over rows
     return ray, valid
+
+
+def radius_of_elevation(view: ViewParams, elevation: torch.Tensor) -> torch.Tensor:
+    """Image radius (pixels, isotropic f = fx) of a ray at the given elevation."""
+    return view.fx * torch.cos(elevation) / (torch.sin(elevation) + view.xi)
+
+
+def annulus_bounds(view: ViewParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """(r_inner, r_outer) pixel radii of this view's valid annulus (radius
+    falls with elevation: r_inner is max_elevation's, r_outer min_elevation's)."""
+    r_hi = radius_of_elevation(view, view.max_elevation)
+    r_lo = radius_of_elevation(view, view.min_elevation)
+    return torch.minimum(r_hi, r_lo), torch.maximum(r_hi, r_lo)
+
+
+def annulus_mask(view: ViewParams, height: int, width: int) -> torch.Tensor:
+    """Boolean (H, W) mask of the view's valid annulus in the raw image."""
+    r_in, r_out = annulus_bounds(view)
+    device = view.fx.device
+    vv = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    uu = torch.arange(width, dtype=torch.float32, device=device)[None, :]
+    r = torch.sqrt((uu - view.cx) ** 2 + (vv - view.cy) ** 2)
+    return (r >= r_in) & (r <= r_out)

@@ -1,6 +1,6 @@
 """Where a replay's time goes on the card: torch.profiler over one replay.
 
-    python -m sosvo_torch.tools.profile_replay [--ba | --pgo]
+    python -m sosvo_torch.tools.profile_replay [--ba | --pgo | --images]
     python -m sosvo_torch.tools.profile_replay --kernels [TREE ...] [--rounds N]
 
 For bench.py's c1 workload (10 frames) and c3's sizes in observation mode
@@ -30,6 +30,15 @@ the leg's host-clock seconds unprofiled, its device time and device busy
 share, and host ms per call of its stages (keyframe stereo features,
 signatures + top-k, and per pair the match, the RANSAC and the two-frame
 BA, then the PGO solve).
+
+With --images, the image-mode presets as written (configs/c2_chip_ba.json,
+60 frames, and configs/c3_host_pgo.json, its first 40 frames; rendered on
+the card): the frontend alone (`extract_sequence` over the frames) and the
+image-mode BA replay (extraction, then the window-BA replay), each after a
+warm-up: host ms per frame of the extraction, unprofiled; the frontend's
+device events and device ms per frame and its share of the replay's device
+time; the replay's frames/s, device busy share and device events per
+frame, and its ATE and pose_ok with the port's own RANSAC generator.
 
 With --kernels, both kernels alone at every main-path shape, for each
 source TREE (the root of a checkout of the port; `.` for this one), one
@@ -65,10 +74,15 @@ from sosvo_torch.kernels import match_cuda
 from sosvo_torch.kernels.match_cuda import match_stats_cuda
 from sosvo_torch.kernels.schur_cuda import schur_reduce_cuda, schur_reduce_plain
 from sosvo_torch.tools.paired import run_in_turns
+from sosvo_torch.eval.ate import ate_rmse
+from sosvo_torch.frontend.image_frontend import extract_sequence
 from sosvo_torch.tools.workload import (
     ba_replayer,
     card_info,
+    image_ba_replayer,
+    load_image_preset,
     load_preset,
+    make_image_workload,
     make_workload,
     replayer,
 )
@@ -184,6 +198,45 @@ def profile_pgo(device) -> None:
                   f"ms_per_call={e.cpu_time_total / 1e3 / e.count}", flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
                                     max_name_column_width=50), flush=True)
+
+
+def _timed_and_profiled(fn) -> tuple[float, float, int]:
+    """(unprofiled wall s, device s, device events) of one call of `fn`
+    after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = _device_events(prof)
+    return wall, sum(e.time_range.elapsed_us() for e in dev) / 1e6, len(dev)
+
+
+def profile_images(device) -> None:
+    """The image-mode presets' frontend and BA replay (module docstring)."""
+    for preset, n_frames in (("c2_chip_ba", None), ("c3_host_pgo", 40)):
+        cfg, run = load_image_preset(preset)
+        n = n_frames or run["n_frames"]
+        rig, poses, images, luts, _ = make_image_workload(cfg, n, device)
+        fe_wall, fe_dev, fe_events = _timed_and_profiled(
+            lambda: extract_sequence(rig, luts, cfg.frontend, images))
+        replay = image_ba_replayer(cfg, rig, poses, images, luts, device)
+        wall, dev_s, events = _timed_and_profiled(replay)
+        outs = replay()[1]
+        ate = float(ate_rmse(outs.vo.T_world[1:, :3, 3], poses[1:, :3, 3])[0])
+        print(f"{preset} image mode, window BA: K={cfg.frontend.max_features} "
+              f"pano={cfg.frontend.pano_height}x{cfg.frontend.pano_width} frames={n} "
+              f"frontend: host_ms_per_frame_unprofiled={1e3 * fe_wall / n} "
+              f"device_ms_per_frame={1e3 * fe_dev / n} device_events_per_frame={fe_events / n} "
+              f"share_of_replay_device_time={fe_dev / dev_s} replay (extraction included): "
+              f"frames_per_s_unprofiled={n / wall} wall_s={wall} device_s={dev_s} "
+              f"device_busy_share={dev_s / wall} device_events_per_frame={events / n} "
+              f"ATE_m={ate} pose_ok={int(outs.vo.pose_ok[1:].sum())}/{n - 1} (the port's "
+              f"generator)", flush=True)
 
 
 def _device_us_per_call(fn, calls: int = 50) -> tuple[float, float, list]:
@@ -428,6 +481,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ba", action="store_true", help="profile the window-BA replay")
     ap.add_argument("--pgo", action="store_true", help="profile c3's loop-closure leg")
+    ap.add_argument("--images", action="store_true",
+                    help="profile the image-mode presets' frontend and BA replay")
     ap.add_argument("--kernels", nargs="*", metavar="TREE",
                     help="the kernels alone at every main-path shape, for each source tree "
                          "(none: only the yardsticks, the launch floor and the host breakdown)")
@@ -444,6 +499,9 @@ def main() -> None:
         return
     if args.pgo:
         profile_pgo(device)
+        return
+    if args.images:
+        profile_images(device)
         return
     _label_stages()
     if args.ba:

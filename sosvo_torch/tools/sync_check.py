@@ -7,8 +7,10 @@ Runs each workload once to warm up, then once under
 synchronising calls, per replay and per frame, grouped by the port's source
 line: bench.py's c1 workload frame to frame (configs/c1_cpu_smoke.json, 10
 frames), and the keyframed window-BA replay of configs/c2_chip_ba.json in
-observation mode (its first 20 frames: 5 keyframes, 4 window solves), and
-c3's loop-closure leg (`tools/workload.py:pgo_leg`: 160 candidate pairs,
+observation mode (its first 20 frames: 5 keyframes, 4 window solves), the same preset as written in
+image mode (`tools/workload.py:image_ba_replayer`: extraction of its first
+20 rendered frames, then the window-BA replay; the frontend is expected to
+add no sync), and c3's loop-closure leg (`tools/workload.py:pgo_leg`: 160 candidate pairs,
 300 inliers, DCS) over a frame-to-frame replay at c3's sizes (K=2048,
 H=1024, 200 frames, 50 stride keyframes). The BA replay is expected to
 sync once per frame at the lazy gate, once per frame at the relocalisation
@@ -32,7 +34,10 @@ import torch
 from sosvo_torch.tools.workload import (
     ba_replayer,
     card_info,
+    image_ba_replayer,
+    load_image_preset,
     load_preset,
+    make_image_workload,
     make_workload,
     pgo_leg,
     replayer,
@@ -69,6 +74,10 @@ def main() -> None:
     n_frames = 20
     rig, scene, obs = make_workload(cfg, n_frames, run["n_landmarks"], device)
     count_syncs("c2 window-BA", ba_replayer(cfg, rig, scene, obs, device), n_frames)
+    cfg, _ = load_image_preset("c2_chip_ba")
+    rig, poses, images, luts, _ = make_image_workload(cfg, n_frames, device)
+    count_syncs("c2 image-mode window-BA", image_ba_replayer(cfg, rig, poses, images, luts, device),
+                n_frames)
     cfg, run = load_preset("c3_host_pgo")
     rig, scene, obs = make_workload(cfg, run["n_frames"], run["n_landmarks"], device)
     _, outs = replayer(cfg, rig, scene, obs, device)()

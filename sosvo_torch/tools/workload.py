@@ -1,11 +1,15 @@
-"""The synthetic observation-mode workloads of chip_smoke.py and the tools.
+"""The synthetic workloads of chip_smoke.py and the tools.
 
-A workload is a config preset from `configs/` in observation mode, a scene
-and its per-frame observations at 0.3 px pixel noise and 2 % descriptor bit
-flips (bench.py's), all drawn from one seeded generator on the device. It
-is replayed frame to frame (`replayer`) or with keyframed window BA
-(`ba_replayer`). `pgo_leg` closes loops over a replayed trajectory as
-the JAX package's c3 command line does after its replay.
+An observation-mode workload is a config preset from `configs/` in
+observation mode, a scene and its per-frame observations at 0.3 px pixel
+noise and 2 % descriptor bit flips (bench.py's), all drawn from one seeded
+generator on the device. It is replayed frame to frame (`replayer`) or with
+keyframed window BA (`ba_replayer`). An image-mode workload
+(`make_image_workload`) is a preset as written, `"mode": "images"`: the
+room and trajectory of `sosvo/cli.py` rendered on the device, the frontend's
+LUTs and the extracted observations. `pgo_leg` closes loops over a
+replayed trajectory as the JAX package's c3 command line does after its
+replay.
 """
 
 from __future__ import annotations
@@ -18,10 +22,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from sosvo_torch.frontend.image_frontend import build_frontend_luts, extract_sequence
 from sosvo_torch.sensor.rig import default_rig
-from sosvo_torch.synth.scene import make_scene, observe_sequence
+from sosvo_torch.synth.render import RoomScene, render_sequence
+from sosvo_torch.synth.scene import FrameObservations, make_scene, make_trajectory, observe_sequence
 from sosvo_torch.utils.config import PipelineConfig, load_pipeline_config
 from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
+from sosvo_torch.vo.image_pipeline import run_replay_images_ba
 from sosvo_torch.vo.loop_closure import LoopClosure, close_loops
 from sosvo_torch.vo.pipeline import run_replay
 from sosvo_torch.vo.state import init_track_state
@@ -30,6 +37,8 @@ CONFIGS = Path(__file__).resolve().parents[2] / "configs"
 PIXEL_NOISE = 0.3
 DESC_FLIP = 0.02
 SEED = 0
+ROOM = RoomScene(radius=3.0, floor_z=-1.2, ceiling_z=1.6, texture_scale=2.0)  # sosvo/cli.py's
+TRAJECTORY_RADIUS = 0.4                                                      # sosvo/cli.py's
 
 
 def load_preset(name: str) -> tuple[PipelineConfig, dict]:
@@ -37,6 +46,38 @@ def load_preset(name: str) -> tuple[PipelineConfig, dict]:
     path = CONFIGS / f"{name}.json"
     cfg = dataclasses.replace(load_pipeline_config(path), mode="observations")
     return cfg, json.loads(path.read_text())["run"]
+
+
+def load_image_preset(name: str) -> tuple[PipelineConfig, dict]:
+    """(config as written, its "run" block) of an image-mode preset."""
+    path = CONFIGS / f"{name}.json"
+    cfg = load_pipeline_config(path)
+    if cfg.mode != "images":
+        raise ValueError(f"configs/{name}.json is not an image-mode preset")
+    return cfg, json.loads(path.read_text())["run"]
+
+
+def render_frames(rig, n_frames: int, frames, device) -> torch.Tensor:
+    """The CLI's room rendered at `frames` of its n_frames-long trajectory."""
+    poses = make_trajectory(n_frames, radius=TRAJECTORY_RADIUS, device=device)
+    return render_sequence(rig, poses[list(frames)], ROOM)
+
+
+def make_image_workload(cfg: PipelineConfig, n_frames: int, device, chunk: int = 64):
+    """(rig, ground-truth poses, rendered images, LUTs, observations) of an
+    image-mode preset on `device`: the CLI's room along its trajectory
+    through `default_rig()` (768 x 768), rendered and extracted `chunk`
+    frames at a time, as the CLI does with its `render_chunk`."""
+    rig = default_rig(device=device)
+    poses = make_trajectory(n_frames, radius=TRAJECTORY_RADIUS, device=device)
+    luts = build_frontend_luts(rig, cfg.frontend)
+    images, parts = [], []
+    for f0 in range(0, n_frames, chunk):
+        imgs = render_sequence(rig, poses[f0:f0 + chunk], ROOM)
+        images.append(imgs)
+        parts.append(extract_sequence(rig, luts, cfg.frontend, imgs))
+    obs = FrameObservations(*(torch.cat(x) for x in zip(*parts)))
+    return rig, poses, torch.cat(images), luts, obs
 
 
 def make_workload(cfg: PipelineConfig, n_frames: int, n_landmarks: int, device):
@@ -70,16 +111,31 @@ def ba_replayer(cfg: PipelineConfig, rig, scene, obs, device):
     return replay
 
 
+def image_ba_replayer(cfg: PipelineConfig, rig, poses, images, luts, device, draws=None):
+    """A function that extracts every image and replays the observations with
+    keyframed window BA (`run_replay_images_ba`) from the first pose; RANSAC
+    draws are `draws` (`StepDraws` stacked over frames, e.g. the JAX
+    package's from `tools/reference_draws.py`), else from SEED + 2. Returns
+    (final state, stacked outputs)."""
+    def replay():
+        gen = torch.Generator(device=device).manual_seed(SEED + 2)
+        state = init_ba_state(cfg, gen, T0=poses[0], device=device)
+        return run_replay_images_ba(rig, cfg, state, images, luts, draws)
+    return replay
+
+
 def pgo_leg(cfg: PipelineConfig, rig, obs, T_world: torch.Tensor,
-            kf_idx: np.ndarray) -> LoopClosure:
+            kf_idx: np.ndarray, gumbels=None) -> LoopClosure:
     """Loop closure and PGO over a replayed trajectory with the preset's
     loop settings (`loop_candidates`, 0 = all pairs, `loop_min_inliers`,
     `pgo_robust`, `pgo_robust_delta`), min_gap=3 and 10 GN iterations, as
-    `sosvo/cli.py` passes them to `pgo_refine_trajectory`; RANSAC draws from
-    a generator seeded 17 on the trajectory's device."""
+    `sosvo/cli.py` passes them to `pgo_refine_trajectory`; RANSAC draws are
+    `gumbels` (one (H, K) matrix per candidate pair), else from a generator
+    seeded 17 on the trajectory's device."""
     return close_loops(rig, cfg, obs, T_world, min_gap=3, min_inliers=cfg.loop_min_inliers,
                        iters=10, max_candidates=cfg.loop_candidates or None,
-                       robust=cfg.pgo_robust, robust_delta=cfg.pgo_robust_delta, kf_idx=kf_idx)
+                       robust=cfg.pgo_robust, robust_delta=cfg.pgo_robust_delta, kf_idx=kf_idx,
+                       gumbels=gumbels)
 
 
 def card_info() -> str:

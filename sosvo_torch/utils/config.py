@@ -2,11 +2,11 @@
 
 Counterpart of `sosvo/utils/config.py`: the same dataclasses, field names
 and defaults, so the presets in `configs/*.json` load unchanged. (Importing
-the JAX module would run `sosvo/__init__.py`, which imports jax.) Fields the
-port does not run yet (BA, loop closure, distribution, the image frontend)
-are kept so a preset loads; the observation-mode replay reads the matching,
-triangulation, RANSAC, refine and gate fields, and raises on a descriptor
-other than "brief".
+the JAX module would run `sosvo/__init__.py`, which imports jax.) The port
+runs the observation- and image-mode replays, window BA, loop closure and
+PGO from these fields. Fields of what it does not run yet (distribution,
+the SIFT and AKAZE descriptors, the Pallas switches) are kept so every
+preset loads.
 """
 
 from __future__ import annotations
@@ -38,8 +38,9 @@ class FrontendConfig:
     fast_threshold: float = 0.04
     oriented: bool = False
     n_scales: int = 1
-    descriptor: str = "brief"        # "brief" (256-bit Hamming); "sift" is
-                                     # not ported yet and raises
+    descriptor: str = "brief"        # "brief" (256-bit Hamming); "sift" and
+                                     # "akaze" are not ported: the frontend
+                                     # and the matcher raise NotImplementedError
     match_max_distance_l2: float = 0.7
 
 
@@ -56,7 +57,7 @@ class RansacConfig:
 
 @dataclass(frozen=True)
 class BAConfig:
-    """Windowed bundle adjustment knobs (not ported yet)."""
+    """Windowed bundle adjustment knobs."""
 
     window: int = 5
     max_landmarks: int = 512
@@ -64,7 +65,8 @@ class BAConfig:
     iters: int = 5
     huber_delta: float = 0.005
     damping_init: float = 1e-3
-    use_pallas_schur: bool = True
+    use_pallas_schur: bool = True    # JAX-only switch; the port always runs
+                                     # the CUDA Schur kernel (plain twin on CPU)
 
 
 @dataclass(frozen=True)

@@ -22,6 +22,14 @@ from sosvo_torch.vo.keyframes import init_map_state
 from sosvo_torch.vo.loop_closure import pgo_refine_trajectory
 from sosvo_torch.vo.state import init_track_state
 
+def _pano_geometry():
+    """A 2x3 `PanoGeometry`-shaped object of numpy arrays (quad index 0)."""
+    z = np.zeros((2, 3), np.float32)
+    return type("Geom", (), dict(height=2, width=3, min_elevation=-0.5, max_elevation=0.2,
+                                 lut_uv=np.zeros((2, 3, 2), np.float32), valid=z > -1,
+                                 idx_r0=np.zeros((2, 3), np.int32), fu=z, fv=z))()
+
+
 ENTRY_POINTS = {
     "default_rig": lambda **d: default_rig(**d),
     "ViewParams.create": lambda **d: ViewParams.create(0.9, 1, 1, 0, 0, -0.5, 0.2, **d),
@@ -39,6 +47,15 @@ ENTRY_POINTS = {
         type("Win", (), dict(X=np.eye(4)[None], landmarks=np.zeros((1, 3)),
                              rays=np.zeros((1, 1, 2, 3)), weights=np.zeros((1, 1, 2)),
                              viewpoints=np.zeros((2, 3))))(), **d),
+    "images_from_numpy": lambda **d: convert.images_from_numpy(np.zeros((1, 4, 4), np.float32), **d),
+    "keypoints_from_numpy": lambda **d: convert.keypoints_from_numpy(
+        type("Kps", (), dict(rows=np.zeros(2), cols=np.zeros(2), response=np.zeros(2),
+                             valid=np.ones(2, bool)))(), **d),
+    "pano_geometry_from_numpy": lambda **d: convert.pano_geometry_from_numpy(
+        _pano_geometry(), image_height=4, image_width=4, **d),
+    "frontend_luts_from_numpy": lambda **d: convert.frontend_luts_from_numpy(
+        type("Luts", (), dict(top=_pano_geometry(), bottom=_pano_geometry()))(),
+        image_height=4, image_width=4, **d),
     "pose_graph_from_numpy": lambda **d: convert.pose_graph_from_numpy(
         type("Graph", (), dict(X=np.eye(4)[None].repeat(2, 0), node_valid=np.ones(2, bool),
                                ei=np.ones(1, np.int32), ej=np.zeros(1, np.int32),
@@ -95,3 +112,28 @@ def test_pgo_refine_trajectory_follows_its_tensors(monkeypatch):
                                        min_inliers=8, iters=2)
     assert T.device.type == "cpu" and n_loops.device.type == "cpu"
     assert T.shape == sc.poses.shape and bool(torch.isfinite(T).all())
+
+
+def test_image_frontend_follows_its_tensors(monkeypatch):
+    """No card and no device argument: the renderer, the LUTs, extraction
+    and the image replays run where their inputs are."""
+    from sosvo_torch.frontend.image_frontend import build_frontend_luts, extract_observations
+    from sosvo_torch.synth.render import RoomScene, render_sequence
+    from sosvo_torch.utils.config import BAConfig, FrontendConfig
+    from sosvo_torch.vo.image_pipeline import run_replay_images, run_replay_images_ba
+
+    rig = default_rig(image_size=192, device="cpu")
+    poses = scene.make_trajectory(2, radius=0.4, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    images = render_sequence(rig, poses, RoomScene(radius=3.0, floor_z=-1.2, ceiling_z=1.6,
+                                                   texture_scale=2.0))
+    fe = FrontendConfig(max_features=64, pano_height=32, pano_width=256, descriptor_patch=16)
+    cfg = PipelineConfig(frontend=fe, ba=BAConfig(max_landmarks=64, max_new=32))
+    luts = build_frontend_luts(rig, fe)
+    obs = extract_observations(rig, luts, fe, images[0])
+    _, outs = run_replay_images(rig, cfg, init_track_state(64, torch.Generator(), T0=poses[0],
+                                                           device="cpu"), images, luts)
+    _, ba_outs = run_replay_images_ba(rig, cfg, init_ba_state(cfg, torch.Generator(), T0=poses[0],
+                                                              device="cpu"), images, luts)
+    leaves = [images, *luts.top[4:], *obs, *outs, *ba_outs.vo]
+    assert all(x.device.type == "cpu" for x in leaves)

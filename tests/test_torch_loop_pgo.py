@@ -105,8 +105,9 @@ def test_ate_matches_and_drops(leg):
 def test_workload_leg_is_pgo_refine_trajectory(leg, monkeypatch):
     """`pgo_leg` and `pgo_refine_trajectory` are one path: `close_loops`.
     `pgo_leg` hands it the preset's loop settings as `sosvo/cli.py` passes
-    them (min_gap 3, 10 iterations), and `pgo_refine_trajectory` returns its
-    corrected poses and loop count."""
+    them (min_gap 3, 10 iterations) and the caller's pair draws (none by
+    default), and `pgo_refine_trajectory` returns its corrected poses and
+    loop count."""
     kw = LEGS[leg["case"]]
     cfg = dataclasses.replace(leg["t_cfg"], loop_candidates=kw.get("max_candidates", 0),
                               loop_min_inliers=kw["min_inliers"],
@@ -128,8 +129,11 @@ def test_workload_leg_is_pgo_refine_trajectory(leg, monkeypatch):
     assert args == (leg["t_rig"], cfg, leg["t_obs"], leg["T_vo_t"])
     assert got == dict(min_gap=3, min_inliers=kw["min_inliers"], iters=10,
                        max_candidates=kw.get("max_candidates"), robust=kw.get("robust", "none"),
-                       robust_delta=kw.get("robust_delta", 0.1), kf_idx=kf_idx)
+                       robust_delta=kw.get("robust_delta", 0.1), kf_idx=kf_idx, gumbels=None)
     assert out.T_corrected is leg["T_got"]
     T, n = tlc.pgo_refine_trajectory(leg["t_rig"], cfg, leg["t_obs"], leg["T_vo_t"], min_gap=3,
                                      kf_idx=kf_idx, **kw)
     assert len(calls) == 2 and T is leg["T_got"] and n is leg["n_got"]
+    draws = object()   # the pairs' draws, when the caller has them, go through unchanged
+    workload.pgo_leg(cfg, leg["t_rig"], leg["t_obs"], leg["T_vo_t"], kf_idx, gumbels=draws)
+    assert calls[-1][1]["gumbels"] is draws

@@ -15,7 +15,11 @@ angles, which leaves it up to 7.8e-6 from float64 in the residual and up to
 norms within 1e-6; residuals within 1e-5 of the reference, the weights and
 costs made from them within 1e-4 relative; edge Jacobians
 (`torch.func.jacfwd`) within 2e-4 of the reference's `jax.jacfwd` in
-float64; H and b within 1e-4 of each one's largest magnitude. `pgo_solve`
+float64; H and b within 1e-4 of each one's largest magnitude; two builds
+bit-identical (the assembly is a product with one-hot endpoint matrices,
+no atomics), and on a graph with edges repeated into one block, in both
+directions, H and b within 1e-6 of the reference's scatter-adds done in
+float64 on the same edge terms. `pgo_solve`
 with the dense and the cg solver under none, huber and dcs: X within 1e-4,
 cost0 and cost within 1e-4 relative, and `accepted` equal on every
 iteration in which the same solve in float64 still lowers the cost by more
@@ -161,6 +165,46 @@ def test_build_system_matches(graphs):
         np.testing.assert_allclose(a, r, rtol=0, atol=1e-4 * np.abs(r).max(), err_msg=name)
     np.testing.assert_allclose(float(c), float(c_ref), rtol=1e-4)
     np.testing.assert_allclose(float(tpg.pgo_cost(tg)), float(jpg.pgo_cost(g)), rtol=1e-4)
+
+
+def test_build_system_repeats_bit_identical(graphs):
+    """The assembly has no atomics: two builds (and two cg matrix-free
+    scatters) give the same bits."""
+    _, tg = graphs
+    for a, b in zip(tpg.build_system(tg), tpg.build_system(tg)):
+        assert torch.equal(a, b)
+    r, J_i, _ = tpg._edge_terms(tg)
+    src = torch.einsum("erc,er->ec", J_i, r)
+    assert torch.equal(tpg._scatter_rows(N, tg.ei, src), tpg._scatter_rows(N, tg.ei, src))
+
+
+def test_build_system_with_repeated_edges_matches_float64_assembly():
+    """Edges repeated into one block, in both directions: H and b equal the
+    reference's scatter-adds done in float64 on the same edge terms, within
+    1e-6 of each one's largest magnitude."""
+    g = _random_graph(0)
+    ei = np.concatenate([np.asarray(g.ei), [3, 3, 5, 3, 3]])
+    ej = np.concatenate([np.asarray(g.ej), [5, 5, 3, 5, 5]])
+    rng = np.random.default_rng(4)
+    T = np.einsum("eij,ejk->eik", np.asarray(jse3_exp(jnp.asarray(
+        rng.normal(size=(5, 6)) * 0.01, jnp.float32))), np.asarray(g.T_meas)[[15] * 5])
+    tg = pose_graph_from_numpy(g._replace(
+        ei=jnp.asarray(ei), ej=jnp.asarray(ej),
+        T_meas=jnp.concatenate([g.T_meas, jnp.asarray(T, jnp.float32)]),
+        w=jnp.concatenate([g.w, jnp.asarray([1.0, 2.0, 0.5, 1.5, 1.0], jnp.float32)])), "cpu")
+    H, b, _ = tpg.build_system(tg)
+    r, J_i, J_j = (x.double().numpy() for x in tpg._edge_terms(tg))
+    H64, b64 = np.zeros((N, N, 6, 6)), np.zeros((N, 6))
+    for e, (i, j) in enumerate(zip(ei, ej)):
+        H64[i, i] += J_i[e].T @ J_i[e]
+        H64[j, j] += J_j[e].T @ J_j[e]
+        H64[i, j] += J_i[e].T @ J_j[e]
+        H64[j, i] += J_j[e].T @ J_i[e]
+        b64[i] += J_i[e].T @ r[e]
+        b64[j] += J_j[e].T @ r[e]
+    assert np.abs(H64[3, 5]).max() > 0
+    np.testing.assert_allclose(H.numpy(), H64, rtol=0, atol=1e-6 * np.abs(H64).max())
+    np.testing.assert_allclose(b.numpy(), b64, rtol=0, atol=1e-6 * np.abs(b64).max())
 
 
 @functools.lru_cache(maxsize=None)
