@@ -84,11 +84,30 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      W=2; wrong dtype, device and layout must raise;
   9. hold the matcher against its plain twin at the map-association shapes
      (L x K: a late c2 keyframe's 512x512, 1024x2048 at c3's sizes, and
-     4096x1024), with its bound and a library yardstick.
+     4096x1024), with its bound and a library yardstick;
+ 10. c4 as written (configs/c4_batched_replay.json: S=4 lanes of 100
+     frames, K=512, H=512, 8192 landmarks; W=5, L=512, a keyframe every 4
+     frames), the lanes in lockstep, frame to frame and with window BA:
+     pose_ok on every lane after frame 0, each lane's ATE under the JAX
+     package's worst lane plus twice the spread (scripts/ref_c4_ate.py),
+     matcher launches 2 x 4 x 100 (+ 4 x 25 associations + relocalisations
+     in BA), Schur launches 0 and 4 x 24 x 5 = 480, syncs 1 and 2 per frame
+     for the whole batch, and every lane equal to its sequential replay
+     from the same generator (discrete outputs equal, poses within 1e-5
+     and 1e-4); frames/s summed over the lanes; then both kernels at c4's
+     shapes against their plain versions (lane 0's stereo match, its map
+     association and its last window);
+ 11. the command line (`python -m sosvo_torch.cli`), one process per run:
+     c4 in both modes (report mode, 4 lanes, every lane's ATE under phase
+     10's limit), c2 and c3 as written (image mode, window BA, c3 with its
+     loop leg: every frame tracked, a loop closed), and c1 frame to frame
+     with --ckpt-every 4, with and without --pgo: a --fault-inject 5 run
+     exits 42 and its --resume writes the uninterrupted run's frames.jsonl
+     byte for byte, with the same pgo_loops and ATE.
 Each replay and each loop-closure leg resets the launch counts just before
-it and reads them just after; the kernels line's `launches` are phase 7c's
-(this slice's path, c3 image-native: its BA replay plus its loop leg),
-`launches_by_path` every path's. Then it counts each
+it and reads them just after; the kernels line's `launches` are those of
+phase 7c (c3 image-native: its BA replay plus its loop leg) and phase 10
+(c4 in both modes), `launches_by_path` every path's. Then it counts each
 kernel's device events per call (profiler; 1 each: one launch, no fills or
 copies), prints the card's name and power limit, one JSON line describing
 each kernel (with its route: the matcher's b1 tensor-core product, the
@@ -932,6 +951,177 @@ def image_ba_phase(label: str, cfg, n_frames: int, ref_name: str, max_ate: float
     return m_launches, s_launches, rig, poses, obs, outs
 
 
+# The JAX package's per-lane ATE (m) of configs/c4_batched_replay.json on the
+# CPU (scripts/ref_c4_ate.py, seeds 0-2, 4 lanes each; PERF.md section 2):
+# the worst lane of the three seeds plus twice the spread of those twelve
+# lane ATEs (frame to frame 0.053-0.062 m, window BA 0.0052-0.0074 m). The
+# port's lanes are scenes of its own, drawn on the card.
+C4_REF_ATE_LIMIT_M = {"f2f": 0.0808916911482811, "ba": 0.011841376312077045}
+C4_POSE_BOUND = {"f2f": 1e-5, "ba": 1e-4}  # tests/test_batched_replay.py:43, :100
+
+
+def batched_phase(mode: str, cfg, run, device, timed_reps: int, card: str = ""):
+    """10: c4 as written (configs/c4_batched_replay.json: S=4 lanes, 100
+    frames, K=512, H=512, 8192 landmarks; W=5, L=512, a keyframe every 4
+    frames in BA mode), the lanes in lockstep (`tools/workload.py:
+    batched_replayer`). Checks pose_ok on every lane after frame 0, each
+    lane's ATE against the JAX package's limit, the launch counts and the
+    batch's syncs per frame (1 at the batch gate, and in BA mode 1 more at
+    the relocalisation predicate, plus 1 at the start), then each lane
+    against its sequential replay from the same generator: discrete outputs
+    equal, poses within C4_POSE_BOUND. Returns (matcher launches, Schur
+    launches, rig, observations, final state)."""
+    import torch
+    from sosvo_torch.eval.ate import ate_rmse
+    from sosvo_torch.kernels import match_cuda, schur_cuda
+    from sosvo_torch.tools.sync_check import syncs_during
+    from sosvo_torch.tools.workload import SEED, batched_replayer, make_batched_workload
+    from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
+    from sosvo_torch.vo.batched import lane_generators
+    from sosvo_torch.vo.pipeline import run_replay
+    from sosvo_torch.vo.state import init_track_state, lane
+
+    label = f"c4_batched_{mode}"
+    S, F = run["n_sequences"], run["n_frames"]
+    rig, gt, obs = make_batched_workload(cfg, S, F, run["n_landmarks"], device)
+    replay = batched_replayer(cfg, rig, gt, obs, device, mode)
+    torch.cuda.synchronize()
+
+    match_cuda.reset_launches()
+    schur_cuda.reset_launches()
+    (final, outs), flagged = syncs_during(replay)
+    syncs = len(flagged)
+    torch.cuda.synchronize()
+    m_launches, s_launches = match_cuda.launches, schur_cuda.launches
+    vo = outs if mode == "f2f" else outs.vo
+    ates = [float(ate_rmse(vo.T_world[s, 1:, :3, 3], gt[s, 1:, :3, 3])[0]) for s in range(S)]
+    n_ok = int(vo.pose_ok[:, 1:].sum())
+    limit = C4_REF_ATE_LIMIT_M[mode]
+    check(bool(torch.isfinite(vo.T_world).all()), f"{label}: non-finite pose")
+    check(n_ok == S * (F - 1), f"{label}: pose_ok on {n_ok}/{S * (F - 1)} lane frames")
+    check(max(ates) < limit, f"{label}: lane ATEs {ates} m, limit {limit} m")
+    if mode == "f2f":
+        n_kf = n_reloc = 0
+        want_syncs = F
+    else:
+        n_kf, n_reloc = int(outs.is_keyframe.sum()), int(outs.reloc_tried.sum())
+        want_kf = (F + cfg.keyframe_every - 1) // cfg.keyframe_every
+        check(n_kf == S * want_kf, f"{label}: {n_kf} keyframes, expected {S * want_kf}")
+        check(int(outs.n_landmarks[:, -1].min()) == cfg.ba.max_landmarks,
+              f"{label}: a lane's map holds fewer than {cfg.ba.max_landmarks} landmarks")
+        want_syncs = 2 * F  # the gate on every frame, reloc from frame 1, one at the start
+    want_schur = 0 if mode == "f2f" else S * (want_kf - 1) * cfg.ba.iters
+    check(s_launches == want_schur, f"{label}: {s_launches} Schur launches, expected {want_schur}")
+    check(m_launches == 2 * S * F + n_kf + n_reloc,
+          f"{label}: {m_launches} matcher launches, expected {2 * S * F} + {n_kf} + {n_reloc}")
+    check(syncs == want_syncs, f"{label}: {syncs} syncs in {F} frames, expected {want_syncs}")
+
+    diff, gens = 0.0, lane_generators(SEED + 2, S, device)
+    for s in range(S):
+        if mode == "f2f":
+            seq = run_replay(rig, cfg, init_track_state(cfg.frontend.max_features, gens[s],
+                                                        T0=gt[s, 0], device=device), lane(obs, s))[1]
+            got = lane(outs, s)
+        else:
+            seq = run_replay_ba(rig, cfg, init_ba_state(cfg, gens[s], T0=gt[s, 0], device=device),
+                                lane(obs, s))[1]
+            got = lane(outs, s)
+            for name in ("is_keyframe", "n_landmarks", "reloc_tried"):
+                check(torch.equal(getattr(got, name), getattr(seq, name)),
+                      f"{label}: lane {s} {name} differs from its sequential replay")
+            got, seq = got.vo, seq.vo
+        for name in ("pose_ok", "n_stereo", "n_temporal", "n_inliers"):
+            check(torch.equal(getattr(got, name), getattr(seq, name)),
+                  f"{label}: lane {s} {name} differs from its sequential replay")
+        diff = max(diff, float((got.T_world - seq.T_world).abs().max()))
+    check(diff < C4_POSE_BOUND[mode],
+          f"{label}: poses {diff} from the sequential replays, bound {C4_POSE_BOUND[mode]}")
+
+    med = timed_replays(replay, timed_reps)
+    print(f"replay {label}: S={S} K={cfg.frontend.max_features} H={cfg.ransac.n_hyps} "
+          f"W={cfg.ba.window} L={cfg.ba.max_landmarks} frames={F} landmarks={run['n_landmarks']} "
+          f"ATE_per_lane_m={ates} (limit {limit}: JAX CPU reference worst lane + twice the "
+          f"spread) pose_ok={n_ok}/{S * (F - 1)} keyframes={n_kf} relocalisations={n_reloc} "
+          f"matcher_launches={m_launches} schur_launches={s_launches} syncs={syncs} "
+          f"syncs_per_frame={syncs / F} batched_vs_sequential_max_abs_pose_diff={diff} "
+          f"(discrete outputs equal) replay_s_median={med} "
+          f"frames_per_s_summed_over_lanes={S * F / med} (host clock, {timed_reps} runs after "
+          f"one checked run; {card})", flush=True)
+    return m_launches, s_launches, rig, obs, final
+
+
+def cli_phase(c4_limits, configs: Path = ROOT / "configs", device_args=()) -> None:
+    """11: the command line on the card, one process per run, in
+    build/chip_smoke_cli (gitignored): c4 as written in both modes (report
+    mode, lanes, every lane's ATE under phase 10's limit); c2 and c3 as
+    written (image mode, window BA; c3 with its loop leg): pose_ok after
+    frame 0 in the log, c3 closes a loop; c1 frame to frame with
+    --ckpt-every 4: a --fault-inject 5 run exits 42 and its --resume writes
+    the uninterrupted run's frames.jsonl byte for byte; the same with
+    --pgo, its report's loops and ATE equal too. The presets are read from
+    `configs`; `device_args` go to every run."""
+    import shutil
+    import subprocess
+
+    out = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(out, ignore_errors=True)
+
+    def frames(preset):
+        return json.loads((configs / f"{preset}.json").read_text())["run"]["n_frames"]
+
+    def cli(preset, name, *extra, rc=0):
+        config = str(configs / f"{preset}.json")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "sosvo_torch.cli", "--config", config,
+                            "--out", str(out / name), *device_args, *extra], capture_output=True,
+                           text=True, cwd=ROOT, timeout=600)
+        check(r.returncode == rc, f"cli {name}: exit code {r.returncode}, expected {rc}: "
+                                  f"{r.stderr[-3000:]}")
+        print(f"cli {name}: {Path(config).relative_to(configs.parent)} {' '.join(extra)} "
+              f"exit={r.returncode} "
+              f"process_s={time.perf_counter() - t0} (host clock)", flush=True)
+        return out / name
+
+    def report(d):
+        return json.loads((d / "report.json").read_text())
+
+    def all_tracked(d):
+        rows = [json.loads(x) for x in (d / "frames.jsonl").read_text().splitlines()]
+        return all(r["pose_ok"] for r in rows[1:]), len(rows)
+
+    for mode in ("f2f", "ba"):
+        d = cli("c4_batched_replay", f"c4_{mode}", "--mode", mode)
+        rep = report(d)
+        check(rep["mode"] == f"batched-{mode}" and rep["n_sequences"] == 4,
+              f"cli c4 {mode}: report {rep}")
+        check(max(rep["ate_per_sequence"]) < c4_limits[mode],
+              f"cli c4 {mode}: lane ATEs {rep['ate_per_sequence']}, limit {c4_limits[mode]}")
+        check(all_tracked(d) == (True, frames("c4_batched_replay")),
+              f"cli c4 {mode}: lane 0 lost a frame")
+        print(f"cli c4_{mode}: report {json.dumps(rep)}", flush=True)
+    for preset in ("c2_chip_ba", "c3_host_pgo"):
+        d = cli(preset, preset)
+        rep, n = report(d), frames(preset)
+        check(rep["mode"] == "ba" and rep["frames"] == n and all_tracked(d) == (True, n),
+              f"cli {preset}: report {rep}, or a frame lost")
+        check(preset != "c3_host_pgo" or rep["pgo_loops"] >= 1, f"cli {preset}: no loop closed")
+        print(f"cli {preset}: report {json.dumps(rep)}", flush=True)
+    c1 = "c1_cpu_smoke"
+    for tag, extra in (("c1", ()), ("c1_pgo", ("--pgo",))):
+        args = ("--mode", "f2f", "--ckpt-every", "4", *extra)
+        full = cli(c1, f"{tag}_full", *args)
+        cli(c1, f"{tag}_faulted", *args, "--fault-inject", "5", rc=42)
+        resumed = cli(c1, f"{tag}_faulted", *args, "--resume")
+        a, b = (full / "frames.jsonl").read_bytes(), (resumed / "frames.jsonl").read_bytes()
+        check(a == b, f"cli {tag}: the resumed frames.jsonl differs from the uninterrupted one")
+        ra, rb = report(full), report(resumed)
+        check((ra["pgo_loops"], ra["ate_rmse_m"]) == (rb["pgo_loops"], rb["ate_rmse_m"]),
+              f"cli {tag}: resumed report {rb} differs from {ra}")
+        print(f"cli {tag}: killed after frame 5 (exit 42), resumed at frame 8: frames.jsonl "
+              f"identical ({len(a)} bytes), pgo_loops={rb['pgo_loops']} "
+              f"ate_rmse_m={rb['ate_rmse_m']} in both", flush=True)
+
+
 def device_events_per_call(label: str, fn, calls: int = 20) -> float:
     """Device events (kernels, copies, fills) per call of `fn`, from the
     profiler over `calls` calls after a warm-up; prints what the profiler
@@ -968,7 +1158,8 @@ def main() -> int:
         from sosvo_torch.tools.reference_draws import loop_draws
         from sosvo_torch.tools.workload import card_info, load_image_preset, load_preset
         from sosvo_torch.vo.loop_closure import keyframe_indices
-        from sosvo_torch.vo.pipeline import stereo_triangulate
+        from sosvo_torch.vo.pipeline import azimuth_of, stereo_triangulate
+        from sosvo_torch.vo.state import lane
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the repository root",
               file=sys.stderr)
@@ -1118,6 +1309,28 @@ def main() -> int:
     lib512 = matcher_library_ms("512x512", 512, 512, device)
     lib2048 = matcher_library_ms("2048x2048", 2048, 2048, device)
 
+    # 10. c4 as written: S=4 lanes in lockstep, frame to frame and window BA
+    c4, c4_run = load_preset("c4_batched_replay")
+    c4_f2f_m, c4_f2f_s, *_ = batched_phase("f2f", c4, c4_run, device, 2, card)
+    c4_ba_m, c4_ba_s, c4_rig, c4_obs, c4_final = batched_phase("ba", c4, c4_run, device, 2, card)
+    launches.update(c4_batched_f2f=c4_f2f_m, c4_batched_ba=c4_ba_m)
+    # both kernels at c4's shapes: lane 0's stereo match of its first frame,
+    # its map against the last keyframe, and its last window
+    c4_lane0, c4_obs = lane(c4_final, 0), lane(c4_obs, 0)
+    f0 = c4_obs.frame(0)
+    results["c4_lane0_stereo"] = compare_kernel(
+        "c4_lane0_frame0_stereo_512x512", (f0.desc_top, f0.desc_bottom, f0.valid_top,
+                                           f0.valid_bottom, azimuth_of(f0.ray_top),
+                                           azimuth_of(f0.ray_bottom)),
+        c4.frontend.stereo_band_rad, c4)
+    association("c4_lane0_map_association_512x512", c4, c4_rig, c4_lane0, c4_obs,
+                c4_run["n_frames"])
+    schur["c4_lane0_W5_L512"] = compare_schur("c4_lane0_late_window_W5_L512",
+                                              window_blocks(c4_rig, c4, c4_lane0.map), lam)
+
+    # 11. the command line on the card
+    cli_phase(C4_REF_ATE_LIMIT_M)
+
     m_main = results["c1_512_stereo"]
     s_main = schur["c2_W5_L512"]
     m_args = main_matcher_args(c1, c1_run["n_landmarks"], device)
@@ -1137,7 +1350,7 @@ def main() -> int:
         {"name": "match_hamming", "route": "cuda",
          "source": "sosvo_torch/csrc/match_hamming.cu",
          "replaces": "sosvo/kernels/match_pallas.py:162",
-         "launches": c3i_m + leg_c3i_m, "launches_by_path": launches,
+         "launches": c3i_m + leg_c3i_m + c4_f2f_m + c4_ba_m, "launches_by_path": launches,
          "max_abs_err": max(r["max_abs_err"] for r in (*results.values(), loop_match)),
          "ms": m_main["ms"], "plain_ms": m_main["plain_ms"], "bound_ms": m_main["bound_ms"],
          "bound_us": m_main["bound_ms"] * 1e3, "bound_by": m_main["bound_by"],
@@ -1149,11 +1362,12 @@ def main() -> int:
         {"name": "schur_reduce", "route": "cuda",
          "source": "sosvo_torch/csrc/schur_reduce.cu",
          "replaces": "sosvo/kernels/schur_pallas.py:106",
-         "launches": c3i_s + leg_c3i_s,
+         "launches": c3i_s + leg_c3i_s + c4_f2f_s + c4_ba_s,
          "launches_by_path": {"c2_ba_observations": c2_s, "c3_sizes_ba_observations": c3_s,
                               "c2_ba_dropout": drop_s, "c3_pgo_leg_ba": leg_ba_s,
                               "c3_pgo_leg_f2f": leg_f2f_s, "c2_ba_images": c2i_s,
-                              "c3_images_ba": c3i_s, "c3_images_pgo_leg": leg_c3i_s},
+                              "c3_images_ba": c3i_s, "c3_images_pgo_leg": leg_c3i_s,
+                              "c4_batched_f2f": c4_f2f_s, "c4_batched_ba": c4_ba_s},
          "max_abs_err": max(r["max_abs_err"] for r in (*schur.values(), loop_schur)),
          "ms": s_main["ms"], "plain_ms": s_main["plain_ms"], "bound_ms": s_main["bound_ms"],
          "bound_us": s_main["bound_ms"] * 1e3, "bound_by": s_main["bound_by"],

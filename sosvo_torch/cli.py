@@ -1,0 +1,298 @@
+"""The command line: run a benchmark preset end to end (counterpart of `sosvo/cli.py`).
+
+Usage:
+    python -m sosvo_torch.cli --config configs/c1_cpu_smoke.json --out RUN_DIR
+    python -m sosvo_torch.cli --config ... --ckpt-every 8 --fault-inject 17
+    python -m sosvo_torch.cli --config ... --resume         # continue after a kill
+    python -m sosvo_torch.cli --config ... --device cpu     # without a card
+
+Builds the preset's synthetic world on the device, replays it in chunks of
+`--ckpt-every` frames and checkpoints the whole replay state (random
+streams included) and the estimated trajectory after every chunk, logs one
+JSON line per frame (`frames.jsonl`), and writes `report.json` with the
+JAX package's keys. `--fault-inject N` kills the process (exit code 42)
+after the chunk holding frame N; `--resume` continues from the last
+checkpoint and writes the same log as an uninterrupted run.
+
+* observation mode (`--source obs`): the scene and observations of
+  `tools/workload.py:make_workload` with the preset's `run` noise; image
+  mode (`--source images`, or a preset with `"mode": "images"`): the
+  JAX command line's room and trajectory rendered and extracted on the
+  device (`tools/workload.py:make_image_workload`);
+* `--mode f2f` or `ba` (keyframed window BA), and `--pgo` (or a preset's
+  `pose_graph`): loop closure and PGO over the estimated trajectory and,
+  in BA mode, the replay's own keyframes;
+* `dist.data_parallel > 1` (config c4): that many sequences (or the run
+  block's `n_sequences`), each its own scene, replayed in lockstep by
+  `vo/batched.py` on one device; observation mode only, no PGO, and the
+  stride keyframe schedule whatever `keyframe_mode` says.
+The random streams are the port's own seeded generators, so its ATE is
+compared with the JAX package's by limits, not digit for digit.
+Options of the JAX command line that are not ported raise
+NotImplementedError naming their ROADMAP.md item; `--pgo` or the image
+source with the batched replay raise ValueError. None is ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+# Options and presets the port does not run yet, with the ROADMAP.md item
+# that ports them.
+SIDE = "ROADMAP.md section 1, item 'Side modules'"
+DIST = "ROADMAP.md section 1, item 'Distribution (c5)'"
+NOT_PORTED = {
+    "sequence": f"staged captures (data/sequence.py): {SIDE}",
+    "rig": f"rig calibration files (sensor/calib_io.py): {SIDE}",
+    "viz": f"plots and viewers (eval/plots, viz, html_viewer): {SIDE}",
+    "verify_sharded": f"the model-sharded replay (config c5): {DIST}",
+    "model_parallel": f"the model-sharded window BA (config c5): {DIST}",
+    "pgo_shards": f"sharded loop closing and PGO (the c3_long presets): {DIST}",
+}
+
+
+def _refuse_unported(args, cfg) -> None:
+    """Raise, before anything runs, for an option the port does not run:
+    NotImplementedError for what is not ported yet, ValueError for what the
+    batched replay does not run (in the JAX package neither)."""
+    for flag in ("sequence", "rig", "viz", "verify_sharded"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported to sosvo_torch "
+                                      f"yet: {NOT_PORTED[flag]}")
+    for field in ("model_parallel", "pgo_shards"):
+        if getattr(cfg.dist, field) > 1:
+            raise NotImplementedError(f"dist.{field} > 1 is not ported to sosvo_torch yet: "
+                                      f"{NOT_PORTED[field]}")
+    if cfg.dist.data_parallel > 1:
+        if _source(args, cfg) != "obs":
+            raise ValueError("the batched replay (dist.data_parallel > 1) is observation-mode (c4)")
+        if args.pgo or cfg.pose_graph:
+            raise ValueError("pose-graph loop closing (--pgo, pipeline.pose_graph) is "
+                             "non-batched only; the batched replay (dist.data_parallel > 1) "
+                             "does not run it")
+
+
+def _source(args, cfg) -> str:
+    return args.source or ("images" if cfg.mode == "images" else "obs")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--out", default=str(Path(tempfile.gettempdir()) / "sosvo_torch_run"))
+    ap.add_argument("--ckpt-every", type=int, default=16, help="frames per chunk/checkpoint")
+    ap.add_argument("--fault-inject", type=int, default=-1,
+                    help="kill the process after this frame (tests resume)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--mode", choices=["f2f", "ba"], default="ba",
+                    help="frame-to-frame only, or keyframed windowed-BA VO")
+    ap.add_argument("--source", choices=["obs", "images"], default=None,
+                    help="feature observations or rendered raw omni images through the "
+                         "frontend; defaults to the config's pipeline.mode")
+    ap.add_argument("--pgo", action="store_true",
+                    help="pose-graph loop closing at the end (or set pipeline.pose_graph)")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the replay runs; cuda fails without a card")
+    ap.add_argument("--sequence", default=None, help="not ported yet")
+    ap.add_argument("--rig", default=None, help="not ported yet")
+    ap.add_argument("--verify-sharded", action="store_true", help="not ported yet")
+    ap.add_argument("--viz", action="store_true", help="not ported yet")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from sosvo_torch.eval.ate import ate_rmse, rpe
+    from sosvo_torch.synth.scene import FrameObservations
+    from sosvo_torch.tools.workload import (SEED, make_batched_workload, make_image_workload,
+                                            make_workload)
+    from sosvo_torch.utils.checkpoint import latest_step, restore_state, save_state
+    from sosvo_torch.utils.config import load_pipeline_config
+    from sosvo_torch.utils.device import default_device
+    from sosvo_torch.utils.framelog import stepoutput_rows, write_jsonl
+    from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
+    from sosvo_torch.vo.batched import (init_batched_ba_states, init_batched_states,
+                                        run_replay_ba_batched, run_replay_batched)
+    from sosvo_torch.vo.loop_closure import pgo_refine_trajectory
+    from sosvo_torch.vo.pipeline import run_replay
+    from sosvo_torch.vo.state import init_track_state, lane
+
+    cfg = load_pipeline_config(args.config)
+    _refuse_unported(args, cfg)
+    device = default_device() if args.device == "cuda" else torch.device("cpu")
+    run = json.loads(Path(args.config).read_text()).get("run", {})
+    n_frames = int(run.get("n_frames", 10))
+    n_landmarks = int(run.get("n_landmarks", 4096))
+    pixel_noise = float(run.get("pixel_noise", 0.3))
+    desc_flip = float(run.get("desc_flip_prob", 0.02))
+    K = cfg.frontend.max_features
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = out / "ckpt"
+    log_path = out / "frames.jsonl"
+
+    extract_wall = None
+    source = _source(args, cfg)
+    batched = cfg.dist.data_parallel > 1
+    S = int(run.get("n_sequences", cfg.dist.data_parallel)) if batched else 1
+    state_gen = torch.Generator(device=device).manual_seed(SEED + 2)
+
+    if batched:
+        # c4: S sequences in lockstep, each its own scene, on one device.
+        rig, gt, obs = make_batched_workload(cfg, S, n_frames, n_landmarks, device,
+                                             pixel_noise, desc_flip)
+        if args.mode == "ba":
+            if cfg.keyframe_mode == "adaptive":
+                print("WARNING: the batched BA replay keeps the lanes in lockstep on the stride "
+                      "keyframe schedule; keyframe_mode='adaptive' is ignored in this mode.",
+                      file=sys.stderr)
+            state0 = init_batched_ba_states(S, cfg, SEED + 2, T0=gt[:, 0], device=device)
+            replay_chunk = lambda s, o: run_replay_ba_batched(rig, cfg, s, o)  # noqa: E731
+            get_T, get_vo = (lambda o: o.vo.T_world), (lambda o: lane(o.vo, 0))
+        else:
+            state0 = init_batched_states(S, K, SEED + 2, T0=gt[:, 0], device=device)
+            replay_chunk = lambda s, o: run_replay_batched(rig, cfg, s, o)  # noqa: E731
+            get_T, get_vo = (lambda o: o.T_world), (lambda o: lane(o, 0))  # log sequence 0
+        get_kf = None  # PGO, the keyframe flags' consumer, is non-batched only
+        slice_obs = lambda f, hi: FrameObservations(*(x[:, f:hi] for x in obs))  # noqa: E731
+    else:
+        if source == "images":
+            t_extract0 = time.perf_counter()
+            rig, gt, _, _, obs = make_image_workload(cfg, n_frames, device,
+                                                     chunk=int(run.get("render_chunk", 64)),
+                                                     keep_images=False)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            extract_wall = time.perf_counter() - t_extract0
+        else:
+            rig, scene, obs = make_workload(cfg, n_frames, n_landmarks, device, pixel_noise,
+                                            desc_flip)
+            gt = scene.poses
+        slice_obs = lambda f, hi: FrameObservations(*(x[f:hi] for x in obs))  # noqa: E731
+        if args.mode == "ba":
+            state0 = init_ba_state(cfg, state_gen, T0=gt[0], device=device)
+            replay_chunk = lambda s, o: run_replay_ba(rig, cfg, s, o)  # noqa: E731
+            get_T, get_vo, get_kf = (lambda o: o.vo.T_world), (lambda o: o.vo), \
+                (lambda o: o.is_keyframe)
+        else:
+            state0 = init_track_state(K, state_gen, T0=gt[0], device=device)
+            replay_chunk = lambda s, o: run_replay(rig, cfg, s, o)  # noqa: E731
+            get_T, get_vo, get_kf = (lambda o: o.T_world), (lambda o: o), None
+
+    fax = 1 if batched else 0  # the frame axis of stacked trajectories
+    start_frame = 0
+    state = state0
+    traj_prefix = np.zeros((S, 0, 4, 4) if batched else (0, 4, 4), np.float32)
+    kf_prefix = np.zeros((0,), bool)
+    if args.resume:
+        step = latest_step(ckpt_dir)
+        if step is not None:
+            state = restore_state(ckpt_dir, step, state0)
+            start_frame = step
+            # The ESTIMATED trajectory up to the checkpoint, never ground
+            # truth: PGO below consumes the whole estimated trajectory.
+            traj_prefix = np.load(ckpt_dir / f"traj_{step:08d}.npy")
+            kf_path = ckpt_dir / f"kf_{step:08d}.npy"
+            if kf_path.exists():  # the BA replay's actual keyframes, for PGO
+                kf_prefix = np.load(kf_path)
+            print(f"[sosvo_torch] resumed from checkpoint at frame {step}")
+
+    chunk = max(1, args.ckpt_every)
+    all_T, all_kf = [traj_prefix], [kf_prefix]
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    f = start_frame
+    append = args.resume and start_frame > 0
+    while f < n_frames:
+        hi = min(f + chunk, n_frames)
+        state, outs = replay_chunk(state, slice_obs(f, hi))
+        sync()
+        all_T.append(get_T(outs).cpu().numpy())
+        if get_kf is not None:
+            all_kf.append(get_kf(outs).cpu().numpy())
+        write_jsonl(log_path, stepoutput_rows(get_vo(outs), t_offset=f), append=append)
+        append = True
+        save_state(ckpt_dir, hi, state)
+        np.save(ckpt_dir / f"traj_{hi:08d}.npy", np.concatenate(all_T, axis=fax))
+        if get_kf is not None:
+            np.save(ckpt_dir / f"kf_{hi:08d}.npy", np.concatenate(all_kf))
+        if 0 <= args.fault_inject < hi:
+            print(f"[sosvo_torch] fault injection: dying after frame {hi}")
+            sys.stdout.flush()
+            os._exit(42)
+        f = hi
+    wall = time.perf_counter() - t0
+
+    # The whole estimated trajectory (checkpointed prefix + this run's
+    # frames), equal to the uninterrupted run's.
+    T_est = torch.from_numpy(np.concatenate(all_T, axis=fax)).to(device)
+    T_vo = T_est
+    n_loops, pgo_wall = 0, None
+    if args.pgo or cfg.pose_graph:
+        t_pgo0 = time.perf_counter()
+        kw = dict(min_inliers=cfg.loop_min_inliers, max_candidates=cfg.loop_candidates or None,
+                  robust=cfg.pgo_robust, robust_delta=cfg.pgo_robust_delta)
+        if args.mode == "ba":
+            # The replay's actual keyframe set, when the flags cover every frame.
+            kf_flags = np.concatenate(all_kf)
+            kf_idx = np.nonzero(kf_flags)[0]
+            if len(kf_flags) == n_frames and len(kf_idx) >= 2:
+                kw["kf_idx"] = kf_idx
+        T_est, n_loops = pgo_refine_trajectory(rig, cfg, obs, T_est, **kw)
+        n_loops = int(n_loops)
+        sync()
+        pgo_wall = time.perf_counter() - t_pgo0
+
+    def ate(est, ref):
+        return float(ate_rmse(est[1:, :3, 3], ref[1:, :3, 3])[0])
+
+    def rpes(est, ref):
+        if est.shape[0] <= 2:  # a 2-frame run is one pose pair; RPE needs two
+            return 0.0, 0.0
+        return tuple(float(x) for x in rpe(est[1:], ref[1:]))
+
+    if batched:
+        ates = [ate(T_est[s], gt[s]) for s in range(S)]
+        rmse = float(np.sqrt(np.mean(np.square(ates))))
+        t_rpe, r_rpe = rpes(T_est[0], gt[0])
+    else:
+        rmse = ate(T_est, gt)
+        t_rpe, r_rpe = rpes(T_est, gt)
+    done = n_frames - start_frame
+
+    report = {
+        "config": args.config,
+        "frames": done,
+        "ate_rmse_m": round(rmse, 6),
+        "rpe_t_m": round(t_rpe, 6),
+        "rpe_r_rad": round(r_rpe, 6),
+        "frames_per_s": round(done * S / wall, 2),
+        "wall_s": round(wall, 2),
+        "mode": f"batched-{args.mode}" if batched else args.mode,
+        "pgo_loops": n_loops,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    }
+    if n_loops:
+        report["ate_rmse_vo_m"] = round(ate(T_vo, gt), 6)
+        report["pgo_wall_s"] = round(pgo_wall, 2)
+    if extract_wall is not None:
+        report["extract_wall_s"] = round(extract_wall, 2)
+    if batched:
+        report["n_sequences"] = S
+        report["mesh"] = {"data": 1}  # every lane on the one device
+        report["ate_per_sequence"] = [round(a, 6) for a in ates]
+    (out / "report.json").write_text(json.dumps(report, indent=2))
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """Where a replay's time goes on the card: torch.profiler over one replay.
 
-    python -m sosvo_torch.tools.profile_replay [--ba | --pgo | --images]
+    python -m sosvo_torch.tools.profile_replay [--ba | --pgo | --images | --batched]
     python -m sosvo_torch.tools.profile_replay --kernels [TREE ...] [--rounds N]
 
 For bench.py's c1 workload (10 frames) and c3's sizes in observation mode
@@ -40,6 +40,16 @@ device events and device ms per frame and its share of the replay's device
 time; the replay's frames/s, device busy share and device events per
 frame, and its ATE and pose_ok with the port's own RANSAC generator.
 
+With --batched, the c4 batched replay (configs/c4_batched_replay.json:
+K=512, H=512, 8192 landmarks, W=5, L=512, a keyframe every 4 frames) frame
+to frame and with window BA at S = 1, 2, 4 and 8 lanes, after a warm-up:
+frames/s summed over the lanes, host ms per frame and each lane's ATE of
+one unprofiled replay of the preset's 100 frames; device busy share and
+device events per frame of its first 20 frames
+(`workload.BATCHED_PROFILED_FRAMES`), timed unprofiled and then profiled
+with device activity only (the profiler's host-side events at S=8 over
+100 frames take it many minutes to read).
+
 With --kernels, both kernels alone at every main-path shape, for each
 source TREE (the root of a checkout of the port; `.` for this one), one
 process per tree, in turns (A B, B A, ...): device us per call and device
@@ -77,11 +87,15 @@ from sosvo_torch.tools.paired import run_in_turns
 from sosvo_torch.eval.ate import ate_rmse
 from sosvo_torch.frontend.image_frontend import extract_sequence
 from sosvo_torch.tools.workload import (
+    BATCHED_LANES,
+    BATCHED_PROFILED_FRAMES,
     ba_replayer,
+    batched_replayer,
     card_info,
     image_ba_replayer,
     load_image_preset,
     load_preset,
+    make_batched_workload,
     make_image_workload,
     make_workload,
     replayer,
@@ -214,6 +228,47 @@ def _timed_and_profiled(fn) -> tuple[float, float, int]:
         torch.cuda.synchronize()
     dev = _device_events(prof)
     return wall, sum(e.time_range.elapsed_us() for e in dev) / 1e6, len(dev)
+
+
+def _wall(fn):
+    """(host s of one synchronised call of `fn`, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def profile_batched(device) -> None:
+    """c4's batched replay at each lane count (module docstring)."""
+    from sosvo_torch.synth.scene import FrameObservations
+
+    cfg, run = load_preset("c4_batched_replay")
+    n, n_profiled = run["n_frames"], BATCHED_PROFILED_FRAMES
+    for n_lanes in BATCHED_LANES:
+        rig, gt, obs = make_batched_workload(cfg, n_lanes, n, run["n_landmarks"], device)
+        head = FrameObservations(*(x[:, :n_profiled] for x in obs))
+        for mode in ("f2f", "ba"):
+            short = batched_replayer(cfg, rig, gt, head, device, mode)
+            short()  # warm-up
+            wall, (_, outs) = _wall(batched_replayer(cfg, rig, gt, obs, device, mode))
+            wall_short, _ = _wall(short)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                short()
+                torch.cuda.synchronize()
+            dev = _device_events(prof)
+            dev_s = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+            vo = outs if mode == "f2f" else outs.vo
+            ates = [float(ate_rmse(vo.T_world[s, 1:, :3, 3], gt[s, 1:, :3, 3])[0])
+                    for s in range(n_lanes)]
+            print(f"c4 batched {mode}: S={n_lanes} K={cfg.frontend.max_features} "
+                  f"H={cfg.ransac.n_hyps} frames={n}: frames_per_s_summed_over_lanes="
+                  f"{n_lanes * n / wall} host_ms_per_frame={1e3 * wall / n} wall_s={wall} "
+                  f"ATE_per_lane_m={ates} pose_ok={int(vo.pose_ok[:, 1:].sum())}/"
+                  f"{n_lanes * (n - 1)}; first {n_profiled} frames: wall_s={wall_short} "
+                  f"device_s={dev_s} device_busy_share={dev_s / wall_short} "
+                  f"device_events_per_frame={len(dev) / n_profiled} "
+                  f"device_events_per_lane_frame={len(dev) / (n_profiled * n_lanes)}", flush=True)
 
 
 def profile_images(device) -> None:
@@ -483,6 +538,8 @@ def main() -> None:
     ap.add_argument("--pgo", action="store_true", help="profile c3's loop-closure leg")
     ap.add_argument("--images", action="store_true",
                     help="profile the image-mode presets' frontend and BA replay")
+    ap.add_argument("--batched", action="store_true",
+                    help="profile c4's batched replay at S = 1, 2, 4 and 8 lanes")
     ap.add_argument("--kernels", nargs="*", metavar="TREE",
                     help="the kernels alone at every main-path shape, for each source tree "
                          "(none: only the yardsticks, the launch floor and the host breakdown)")
@@ -502,6 +559,9 @@ def main() -> None:
         return
     if args.images:
         profile_images(device)
+        return
+    if args.batched:
+        profile_batched(device)
         return
     _label_stages()
     if args.ba:

@@ -92,11 +92,27 @@ def gumbel(key: Key, shape: tuple[int, ...], device) -> torch.Tensor:
 def replay_draws(n_frames: int, n_hyps: int, k: int, device, seed: int = CLI_REPLAY_SEED,
                  reloc_slots: int | None = None) -> StepDraws:
     """The per-frame RANSAC draws of the JAX package's replay from
-    `PRNGKey(seed)`, stacked over frames: each frame splits its key into
-    (next key, rigid, essential) and draws (H, K) Gumbel matrices; with
-    `reloc_slots` L, also relocalisation's (H, L) matrix from the next key
-    folded with RELOC_FOLD (the BA replay's)."""
-    key = prng_key(seed)
+    `PRNGKey(seed)` (`replay_draws_from_key`)."""
+    return replay_draws_from_key(prng_key(seed), n_frames, n_hyps, k, device, reloc_slots)
+
+
+def batched_replay_draws(n_lanes: int, n_frames: int, n_hyps: int, k: int, device,
+                         seed: int = CLI_REPLAY_SEED, reloc_slots: int | None = None) -> StepDraws:
+    """The JAX package's batched replay draws (`sosvo/vo/batched.py`'s
+    states from `PRNGKey(seed)`: lane s starts from `split(key, S)[s]`),
+    stacked (S, F, ...)."""
+    lanes = [replay_draws_from_key(kk, n_frames, n_hyps, k, device, reloc_slots)
+             for kk in split(prng_key(seed), n_lanes)]
+    return StepDraws(*(None if x[0] is None else torch.stack(x) for x in zip(*lanes)))
+
+
+def replay_draws_from_key(key: Key, n_frames: int, n_hyps: int, k: int, device,
+                          reloc_slots: int | None = None) -> StepDraws:
+    """The per-frame RANSAC draws of the JAX package's replay from `key`,
+    stacked over frames: each frame splits its key into (next key, rigid,
+    essential) and draws (H, K) Gumbel matrices; with `reloc_slots` L, also
+    relocalisation's (H, L) matrix from the next key folded with RELOC_FOLD
+    (the BA replay's)."""
     rigid, ess, reloc = [], [], []
     for _ in range(n_frames):
         key, k_rigid, k_ess = split(key, 3)

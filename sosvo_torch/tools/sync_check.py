@@ -18,7 +18,12 @@ predicate once the map holds a keyframe, once at its start (reading the
 frame and keyframe counters), and never inside `insert_keyframe` or
 `ba_solve`; the leg only where its keyframe and governing-keyframe indices
 go from the host to the card (3 per leg), never per pair and never inside
-`pgo_solve` (n_loops stays on the device). The debug mode is PyTorch's own and does
+`pgo_solve` (n_loops stays on the device). Then the c4 batched replay
+(configs/c4_batched_replay.json's widths, its first 20 frames) frame to
+frame and with window BA at S = 1, 2, 4 and 8 lanes: the batch is expected
+to sync once per frame at the batch gate and, in BA mode, once more at the
+batch relocalisation predicate once the maps hold a keyframe, plus once at
+the start, whatever S is (never per lane). The debug mode is PyTorch's own and does
 not see every sync: a blocking host->device copy of a Python list, for
 one, passes unflagged.
 """
@@ -32,11 +37,15 @@ import warnings
 import torch
 
 from sosvo_torch.tools.workload import (
+    BATCHED_LANES,
+    BATCHED_PROFILED_FRAMES,
     ba_replayer,
+    batched_replayer,
     card_info,
     image_ba_replayer,
     load_image_preset,
     load_preset,
+    make_batched_workload,
     make_image_workload,
     make_workload,
     pgo_leg,
@@ -46,22 +55,41 @@ from sosvo_torch.utils.device import default_device
 from sosvo_torch.vo.loop_closure import keyframe_indices
 
 
+def syncs_during(fn):
+    """(fn's result, the warnings of the synchronising calls PyTorch's sync
+    debug mode flags while it runs)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [w for w in caught if "called a synchronizing" in str(w.message)]
+
+
 def count_syncs(label: str, replay, n_frames: int, unit: str = "frame") -> None:
     """Syncs of one run of `replay` after a warm-up run, in all and per
     `unit` (n_frames of them), by source line."""
     replay()
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        replay()
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    _, syncs = syncs_during(replay)
     where = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
     print(f"syncs in one {label} run ({n_frames} {unit}s): {len(syncs)} "
           f"({len(syncs) / n_frames} per {unit})", flush=True)
     for loc, n in where.most_common():
         print(f"  {n} at {loc}", flush=True)
+
+
+def count_batched_syncs(device) -> None:
+    """c4's batched replay in both modes at each lane count (module docstring)."""
+    cfg, run = load_preset("c4_batched_replay")
+    n_frames = BATCHED_PROFILED_FRAMES
+    for n_lanes in BATCHED_LANES:
+        rig, gt, obs = make_batched_workload(cfg, n_lanes, n_frames, run["n_landmarks"], device)
+        for mode in ("f2f", "ba"):
+            count_syncs(f"c4 batched {mode}, S={n_lanes} lanes",
+                        batched_replayer(cfg, rig, gt, obs, device, mode), n_frames)
 
 
 def main() -> None:
@@ -84,6 +112,7 @@ def main() -> None:
     kf_idx = keyframe_indices(run["n_frames"], cfg.keyframe_every)
     count_syncs("c3 loop-closure leg", lambda: pgo_leg(cfg, rig, obs, outs.T_world, kf_idx),
                 cfg.loop_candidates, unit="candidate pair")
+    count_batched_syncs(device)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ An observation-mode workload is a config preset from `configs/` in
 observation mode, a scene and its per-frame observations at 0.3 px pixel
 noise and 2 % descriptor bit flips (bench.py's), all drawn from one seeded
 generator on the device. It is replayed frame to frame (`replayer`) or with
-keyframed window BA (`ba_replayer`). An image-mode workload
+keyframed window BA (`ba_replayer`). A batched workload
+(`make_batched_workload`, config c4) is S such scenes, one generator per
+lane, replayed in lockstep by `batched_replayer`. An image-mode workload
 (`make_image_workload`) is a preset as written, `"mode": "images"`: the
 room and trajectory of `sosvo/cli.py` rendered on the device, the frontend's
 LUTs and the extracted observations. `pgo_leg` closes loops over a
@@ -28,10 +30,12 @@ from sosvo_torch.synth.render import RoomScene, render_sequence
 from sosvo_torch.synth.scene import FrameObservations, make_scene, make_trajectory, observe_sequence
 from sosvo_torch.utils.config import PipelineConfig, load_pipeline_config
 from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
+from sosvo_torch.vo.batched import (init_batched_ba_states, init_batched_states, lane_generators,
+                                    run_replay_ba_batched, run_replay_batched)
 from sosvo_torch.vo.image_pipeline import run_replay_images_ba
 from sosvo_torch.vo.loop_closure import LoopClosure, close_loops
 from sosvo_torch.vo.pipeline import run_replay
-from sosvo_torch.vo.state import init_track_state
+from sosvo_torch.vo.state import init_track_state, stack_lanes
 
 CONFIGS = Path(__file__).resolve().parents[2] / "configs"
 PIXEL_NOISE = 0.3
@@ -39,6 +43,10 @@ DESC_FLIP = 0.02
 SEED = 0
 ROOM = RoomScene(radius=3.0, floor_z=-1.2, ceiling_z=1.6, texture_scale=2.0)  # sosvo/cli.py's
 TRAJECTORY_RADIUS = 0.4                                                      # sosvo/cli.py's
+# The c4 batched replay's lane counts, and the first frames of it that
+# `profile_replay --batched` profiles and `sync_check` counts.
+BATCHED_LANES = (1, 2, 4, 8)
+BATCHED_PROFILED_FRAMES = 20
 
 
 def load_preset(name: str) -> tuple[PipelineConfig, dict]:
@@ -63,31 +71,65 @@ def render_frames(rig, n_frames: int, frames, device) -> torch.Tensor:
     return render_sequence(rig, poses[list(frames)], ROOM)
 
 
-def make_image_workload(cfg: PipelineConfig, n_frames: int, device, chunk: int = 64):
+def make_image_workload(cfg: PipelineConfig, n_frames: int, device, chunk: int = 64,
+                        keep_images: bool = True):
     """(rig, ground-truth poses, rendered images, LUTs, observations) of an
     image-mode preset on `device`: the CLI's room along its trajectory
     through `default_rig()` (768 x 768), rendered and extracted `chunk`
-    frames at a time, as the CLI does with its `render_chunk`."""
+    frames at a time, as the CLI does with its `render_chunk`. With
+    `keep_images=False` each chunk's images are dropped once extracted
+    (None in their place), so memory stays at one chunk's."""
     rig = default_rig(device=device)
     poses = make_trajectory(n_frames, radius=TRAJECTORY_RADIUS, device=device)
     luts = build_frontend_luts(rig, cfg.frontend)
     images, parts = [], []
     for f0 in range(0, n_frames, chunk):
         imgs = render_sequence(rig, poses[f0:f0 + chunk], ROOM)
-        images.append(imgs)
+        if keep_images:
+            images.append(imgs)
         parts.append(extract_sequence(rig, luts, cfg.frontend, imgs))
     obs = FrameObservations(*(torch.cat(x) for x in zip(*parts)))
-    return rig, poses, torch.cat(images), luts, obs
+    return rig, poses, torch.cat(images) if keep_images else None, luts, obs
 
 
-def make_workload(cfg: PipelineConfig, n_frames: int, n_landmarks: int, device):
+def make_workload(cfg: PipelineConfig, n_frames: int, n_landmarks: int, device,
+                  pixel_noise: float = PIXEL_NOISE, desc_flip: float = DESC_FLIP):
     """(rig, scene, observations) drawn from SEED on `device`."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     rig = default_rig(device=device)
     scene = make_scene(gen, n_frames, n_landmarks, device=device)
-    obs = observe_sequence(rig, scene, cfg.frontend.max_features, gen,
-                           PIXEL_NOISE, DESC_FLIP)
+    obs = observe_sequence(rig, scene, cfg.frontend.max_features, gen, pixel_noise, desc_flip)
     return rig, scene, obs
+
+
+def make_batched_workload(cfg: PipelineConfig, n_lanes: int, n_frames: int, n_landmarks: int,
+                          device, pixel_noise: float = PIXEL_NOISE, desc_flip: float = DESC_FLIP):
+    """(rig, ground-truth poses (S, F, 4, 4), observations (S, F, ...)) of a
+    batched workload: lane s's scene and observations are drawn from the
+    generator `vo/batched.py:lane_generators(SEED, S)[s]` on `device`."""
+    rig = default_rig(device=device)
+    scenes, obs = [], []
+    for gen in lane_generators(SEED, n_lanes, device):
+        scene = make_scene(gen, n_frames, n_landmarks, device=device)
+        scenes.append(scene.poses)
+        obs.append(observe_sequence(rig, scene, cfg.frontend.max_features, gen, pixel_noise,
+                                    desc_flip))
+    return rig, torch.stack(scenes), stack_lanes(obs)
+
+
+def batched_replayer(cfg: PipelineConfig, rig, gt_poses, obs, device, mode: str):
+    """A function that replays a batched workload from the lanes' first
+    poses (lane generators from SEED + 2), frame to frame (`mode="f2f"`) or
+    with window BA (`"ba"`), and returns (final state, stacked outputs)."""
+    def replay():
+        if mode == "ba":
+            state = init_batched_ba_states(gt_poses.shape[0], cfg, SEED + 2, T0=gt_poses[:, 0],
+                                           device=device)
+            return run_replay_ba_batched(rig, cfg, state, obs)
+        state = init_batched_states(gt_poses.shape[0], cfg.frontend.max_features, SEED + 2,
+                                    T0=gt_poses[:, 0], device=device)
+        return run_replay_batched(rig, cfg, state, obs)
+    return replay
 
 
 def replayer(cfg: PipelineConfig, rig, scene, obs, device):

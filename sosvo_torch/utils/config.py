@@ -3,10 +3,10 @@
 Counterpart of `sosvo/utils/config.py`: the same dataclasses, field names
 and defaults, so the presets in `configs/*.json` load unchanged. (Importing
 the JAX module would run `sosvo/__init__.py`, which imports jax.) The port
-runs the observation- and image-mode replays, window BA, loop closure and
-PGO from these fields. Fields of what it does not run yet (distribution,
-the SIFT and AKAZE descriptors, the Pallas switches) are kept so every
-preset loads.
+runs the observation- and image-mode replays, window BA, loop closure,
+PGO and the batched replay (`dist.data_parallel`) from these fields.
+Fields of what it does not run yet (model- and PGO-sharding, the SIFT and
+AKAZE descriptors, the Pallas switches) are kept so every preset loads.
 """
 
 from __future__ import annotations
@@ -71,7 +71,10 @@ class BAConfig:
 
 @dataclass(frozen=True)
 class DistConfig:
-    """Mesh / sharding knobs (not ported yet)."""
+    """Mesh / sharding knobs. `data_parallel` > 1 selects the batched replay
+    of that many sequences on one card (`vo/batched.py`, config c4);
+    `model_parallel` and `pgo_shards` (config c5, the c3_long presets) are
+    not ported yet: the command line refuses them."""
 
     data_axis: str = "data"
     model_axis: str = "model"

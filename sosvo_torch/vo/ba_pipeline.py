@@ -17,6 +17,8 @@ The reference's three `lax.cond`s become host `if`s:
 Nothing inside `insert_keyframe` or `ba_solve` reads back from the device.
 The relocalisation RANSAC draws its (H, L) Gumbel matrix from the track's
 generator when it runs, unless the caller passes `StepDraws.gumbel_reloc`.
+The batched replay relocalises with `relocalize_lanes`: one host read of
+every lane's `pose_ok`, then `try_relocalize` for the lost lanes only.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from sosvo_torch.utils.config import PipelineConfig
 from sosvo_torch.utils.device import resolve
 from sosvo_torch.vo.keyframes import MapState, init_map_state, insert_keyframe, run_window_ba
 from sosvo_torch.vo.pipeline import StepDraws, _match, step_full
-from sosvo_torch.vo.state import KeyframeFeatures, StepOutput, TrackState, init_track_state
+from sosvo_torch.vo.state import (KeyframeFeatures, StepOutput, TrackState, init_track_state,
+                                  lane, stack_lanes)
 
 
 class BAState(NamedTuple):
@@ -83,6 +86,27 @@ def try_relocalize(cfg: PipelineConfig, m: MapState, track: TrackState, out: Ste
     return track, out
 
 
+def relocalize_lanes(cfg: PipelineConfig, maps: MapState, track: TrackState, out: StepOutput,
+                     feats: list[KeyframeFeatures], gumbel_reloc: torch.Tensor | None = None
+                     ) -> tuple[TrackState, StepOutput]:
+    """Relocalise the lost lanes of a batch (leading lane axis on `maps`,
+    `track`, `out`; `feats` per lane) once the maps hold a keyframe (the
+    caller's decision, lane-uniform). The host reads every lane's `pose_ok`
+    at once, the batch's one sync; each lost lane runs `try_relocalize`
+    with `gumbel_reloc[s]` when given, else an (H, L) matrix drawn from its
+    own generator then, as its sequential replay draws it."""
+    lost = (~out.pose_ok).tolist()
+    if not any(lost):
+        return track, out
+    tracks = [lane(track, s) for s in range(len(lost))]
+    outs = [lane(out, s) for s in range(len(lost))]
+    for s in (s for s, x in enumerate(lost) if x):
+        g = gumbel(tracks[s].generator, (cfg.ransac.n_hyps, cfg.ba.max_landmarks),
+                   out.pose_ok.device) if gumbel_reloc is None else gumbel_reloc[s]
+        tracks[s], outs[s] = try_relocalize(cfg, lane(maps, s), tracks[s], outs[s], feats[s], g)
+    return stack_lanes(tracks), stack_lanes(outs)
+
+
 def _adaptive_trigger(cfg: PipelineConfig, m: MapState, track: TrackState,
                       frame: int) -> torch.Tensor:
     """Motion-adaptive keyframe predicate (once the map has a keyframe):
@@ -95,6 +119,28 @@ def _adaptive_trigger(cfg: PipelineConfig, m: MapState, track: TrackState,
     gap = frame - m.kf_frame.index_select(0, h1)[0]
     moved = (trans > cfg.kf_trans_thresh) | (rot > cfg.kf_rot_thresh)
     return (gap >= cfg.kf_min_gap) & (moved | (gap >= cfg.kf_max_gap))
+
+
+def keyframe_stage(rig: OmnistereoRig, cfg: PipelineConfig, m: MapState, track: TrackState,
+                   feats: KeyframeFeatures, is_kf: bool, n_kf: int, insert_fn=None, ba_fn=None
+                   ) -> tuple[MapState, torch.Tensor, torch.Tensor]:
+    """The keyframe stage of one lane's frame: on a keyframe, insert it and,
+    once the window holds two keyframes (`n_kf`, those inserted before it),
+    solve the window; the pose is re-read from the window head. Returns
+    (map, T_world, BA cost, 0 when no BA ran). `insert_fn` (`insert_keyframe`'s
+    signature) and `ba_fn` (MapState -> (MapState, cost)) replace the
+    insertion and the window solve."""
+    cost = torch.zeros((), dtype=torch.float32, device=track.T_world.device)
+    if not is_kf:
+        return m, track.T_world, cost
+    m = (insert_fn or insert_keyframe)(m, track.T_world, feats, track.frame_idx - 1,
+                                       max_new=cfg.ba.max_new,
+                                       match_max_distance=cfg.frontend.match_max_distance,
+                                       match_ratio=cfg.frontend.match_ratio)
+    if n_kf + 1 >= 2:  # BA once the window holds two keyframes
+        m, cost = ba_fn(m) if ba_fn is not None else \
+            run_window_ba(rig, m, iters=cfg.ba.iters, huber_delta=cfg.ba.huber_delta)
+    return m, mat_inv(m.kf_X.index_select(0, m.head.reshape(1).long())[0]), cost
 
 
 def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track: TrackState,
@@ -118,17 +164,7 @@ def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track:
     else:
         is_kf = frame % cfg.keyframe_every == 0
 
-    m = state.map
-    cost = torch.zeros((), dtype=torch.float32, device=device)
-    T_w = track.T_world
-    if is_kf:
-        m = insert_keyframe(m, track.T_world, feats, track.frame_idx - 1,
-                            max_new=cfg.ba.max_new,
-                            match_max_distance=cfg.frontend.match_max_distance,
-                            match_ratio=cfg.frontend.match_ratio)
-        if n_kf + 1 >= 2:  # BA once the window holds two keyframes
-            m, cost = run_window_ba(rig, m, iters=cfg.ba.iters, huber_delta=cfg.ba.huber_delta)
-        T_w = mat_inv(m.kf_X.index_select(0, m.head.reshape(1).long())[0])
+    m, T_w, cost = keyframe_stage(rig, cfg, state.map, track, feats, is_kf, n_kf)
     track = track._replace(T_world=T_w)
     out2 = BAStepOutput(
         vo=out._replace(T_world=T_w),

@@ -150,6 +150,9 @@ def loop_edges_for_pairs(rig: OmnistereoRig, cfg: PipelineConfig, feats: Keyfram
         T_meas.append(torch.where(rr.ok, res.X[1], rr.model))
         w.append(torch.where(rr.ok, torch.clamp_max(rr.num_inliers.to(torch.float32) / min_inliers,
                                                     4.0), 0.0))
+    if not T_meas:  # too few keyframes for a pair min_gap apart
+        return (torch.zeros((0, 4, 4), dtype=torch.float32, device=device),
+                torch.zeros((0,), dtype=torch.float32, device=device))
     return torch.stack(T_meas), torch.stack(w)
 
 

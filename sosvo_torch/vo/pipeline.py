@@ -13,6 +13,12 @@ Differences from the reference, all forced by eager PyTorch:
   * RANSAC randomness is an explicit (H, K) Gumbel matrix per RANSAC,
     drawn from the state's generator unless the caller passes `StepDraws`
     (a test passes the reference's own draws).
+  * `step_full(..., defer_gate=True)` leaves the gate out and returns its
+    `GateCtx`; `apply_deferred_gate` then runs it for a batch of lanes
+    with one host read of every lane's predicate (the batched replay,
+    `vo/batched.py`). The essential draw is made only for a lane whose
+    gate runs, from that lane's generator, so each lane's random stream is
+    the one its sequential replay draws.
 Every binary match goes through `sosvo_torch.kernels.match_cuda.
 match_hamming`: the CUDA kernel for CUDA tensors, its plain twin on CPU.
 """
@@ -83,6 +89,17 @@ def stereo_triangulate(rig: OmnistereoRig, obs: FrameObservations, cfg: Pipeline
     return tri.points, obs.desc_top, obs.ray_top, az_t, valid, ray_b
 
 
+class GateCtx(NamedTuple):
+    """What the essential gate needs, detached from the step (no key: the
+    essential draw is made when the gate runs)."""
+
+    need: torch.Tensor        # () bool: this frame wants the cross-check
+    prev_rays: torch.Tensor   # (K, 3)
+    rays_curr: torch.Tensor   # (K, 3) temporally matched current rays
+    pair_valid: torch.Tensor  # (K,)
+    R_rigid: torch.Tensor     # (3, 3) refined rigid rotation to check against
+
+
 def _gate_check(cfg: PipelineConfig, gumbel_ess: torch.Tensor, prev_rays, rays_curr,
                 pair_valid, R_rigid):
     """(consistent, angle): the essential cross-check of the rigid rotation."""
@@ -94,8 +111,13 @@ def _gate_check(cfg: PipelineConfig, gumbel_ess: torch.Tensor, prev_rays, rays_c
 
 
 def step_full(rig: OmnistereoRig, cfg: PipelineConfig, state: TrackState,
-              obs: FrameObservations, draws: StepDraws | None = None):
-    """One VO frame -> (new_state, StepOutput, KeyframeFeatures)."""
+              obs: FrameObservations, draws: StepDraws | None = None,
+              defer_gate: bool = False):
+    """One VO frame -> (new_state, StepOutput, KeyframeFeatures).
+
+    `defer_gate=True` skips the essential gate as if the frame were
+    consistent and appends its `GateCtx` to the return; the caller must run
+    `apply_deferred_gate` before the next step consumes the state."""
     k = obs.desc_top.shape[0]
     h = cfg.ransac.n_hyps
     device = obs.ray_top.device
@@ -118,9 +140,12 @@ def step_full(rig: OmnistereoRig, cfg: PipelineConfig, state: TrackState,
 
     ess_consistent = torch.ones((), dtype=torch.bool, device=device)
     ess_angle = torch.zeros((), dtype=torch.float32, device=device)
-    if cfg.use_essential_gate:
-        frac = rr.num_inliers.to(torch.float32) / torch.clamp_min(n_temporal.to(torch.float32), 1.0)
-        need = (frac < cfg.lazy_gate_ratio) | ~rr.ok
+    frac = rr.num_inliers.to(torch.float32) / torch.clamp_min(n_temporal.to(torch.float32), 1.0)
+    need = (frac < cfg.lazy_gate_ratio) | ~rr.ok
+    if defer_gate:
+        ctx = GateCtx(need=need, prev_rays=state.prev_rays, rays_curr=rays_curr_m,
+                      pair_valid=pair_valid, R_rigid=T_cp[:3, :3])
+    elif cfg.use_essential_gate:
         # The host reads the predicate: one device->host sync per frame.
         if not cfg.lazy_essential_gate or bool(need):
             g_ess = gumbel(state.generator, (h, k), device) if draws is None else draws.gumbel_ess
@@ -140,7 +165,49 @@ def step_full(rig: OmnistereoRig, cfg: PipelineConfig, state: TrackState,
                      ess_angle_err=ess_angle)
     feats = KeyframeFeatures(pts_rig=pts, desc=desc, ray_top=rays, ray_bottom=ray_b,
                              valid=valid)
+    if defer_gate:
+        return new_state, out, feats, ctx
     return new_state, out, feats
+
+
+def apply_deferred_gate(cfg: PipelineConfig, T_world_old: torch.Tensor, new_state: TrackState,
+                        out: StepOutput, ctx: GateCtx, gumbel_ess: torch.Tensor | None = None
+                        ) -> tuple[TrackState, StepOutput]:
+    """Run the held-back essential gate over a batch of deferred steps.
+
+    Every input carries a leading lane axis (`T_world_old`: each lane's pose
+    before the step; `new_state.generator`: a tuple of the lanes'
+    generators). With the lazy gate the host reads every lane's predicate
+    at once, the batch's one sync; only lanes that need the gate run it,
+    and the others keep verdict True and angle 0, as the per-frame gate
+    gives them. Lane s's essential draw is `gumbel_ess[s]` when given, else
+    drawn from its generator, and only when its gate runs. A lane the gate
+    rejects falls back to its pre-step pose, the inline path's identity
+    hold."""
+    n_lanes, k = ctx.rays_curr.shape[:2]
+    device = ctx.need.device
+    ess_ok = torch.ones((n_lanes,), dtype=torch.bool, device=device)
+    ess_angle = torch.zeros((n_lanes,), dtype=torch.float32, device=device)
+    run = [False] * n_lanes
+    if cfg.use_essential_gate:
+        run = ctx.need.tolist() if cfg.lazy_essential_gate else [True] * n_lanes
+    if any(run):
+        oks, angles = [], []
+        for s in range(n_lanes):
+            if run[s]:
+                g = (gumbel(new_state.generator[s], (cfg.ransac.n_hyps, k), device)
+                     if gumbel_ess is None else gumbel_ess[s])
+                c, a = _gate_check(cfg, g, ctx.prev_rays[s], ctx.rays_curr[s],
+                                   ctx.pair_valid[s], ctx.R_rigid[s])
+            else:
+                c, a = ess_ok[s], ess_angle[s]
+            oks.append(c)
+            angles.append(a)
+        ess_ok, ess_angle = torch.stack(oks), torch.stack(angles)
+    pose_ok = out.pose_ok & ess_ok
+    T_world = torch.where(pose_ok[:, None, None], out.T_world, T_world_old)
+    return (new_state._replace(T_world=T_world),
+            out._replace(T_world=T_world, pose_ok=pose_ok, ess_angle_err=ess_angle))
 
 
 def step(rig: OmnistereoRig, cfg: PipelineConfig, state: TrackState, obs: FrameObservations,

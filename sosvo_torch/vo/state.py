@@ -3,12 +3,15 @@ of `sosvo/vo/state.py`, plus `KeyframeFeatures`, which the reference keeps
 in `vo/keyframes.py` beside BA).
 
 The reference's PRNG key becomes an explicit `torch.Generator` on the
-state's device: the step draws its RANSAC Gumbel matrices from it.
+state's device: the step draws its RANSAC Gumbel matrices from it. A
+batched state (`vo/batched.py`) carries a leading lane axis on every tensor
+and a tuple of the lanes' generators; `lane` and `stack_lanes` go between
+the two forms.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -66,3 +69,28 @@ def init_track_state(max_features: int, generator: torch.Generator,
         frame_idx=torch.zeros((), dtype=torch.int32, device=device),
         generator=generator,
     )
+
+
+def lane(tree: Any, s: int) -> Any:
+    """Lane `s` of a batched state or output (NamedTuples of tensors with a
+    leading lane axis, generators as a tuple): views, no copy."""
+    if isinstance(tree, torch.Tensor):
+        return tree[s]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(lane(x, s) for x in tree))
+    if isinstance(tree, tuple):  # the lanes' generators
+        return tree[s]
+    return tree
+
+
+def stack_lanes(trees: list) -> Any:
+    """The inverse of `lane`: per-lane NamedTuples -> one with a leading lane
+    axis on every tensor and the generators as a tuple."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(stack_lanes(list(x)) for x in zip(*trees)))
+    if isinstance(first, torch.Generator):
+        return tuple(trees)
+    return first

@@ -1,0 +1,198 @@
+"""The port's checkpoint/resume and command line (`sosvo_torch.utils.checkpoint`,
+`sosvo_torch.cli`), twins of tests/test_checkpoint.py, all on the CPU.
+
+A replay resumed from a checkpoint, in a fresh template or a new process,
+equals the uninterrupted one bit for bit (the lanes' random streams are
+part of the state). The command line runs at the reference test's tiny
+sizes (K=128, H=128): a killed run resumed writes the uninterrupted run's
+`frames.jsonl` byte for byte, with PGO its report's loops and ATE, and the
+batched branch runs in both modes. Options that are not ported raise.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from sosvo.utils.framelog import stepoutput_rows as jax_stepoutput_rows
+from sosvo_torch import cli
+from sosvo_torch.synth.scene import FrameObservations
+from sosvo_torch.tools.workload import make_workload
+from sosvo_torch.utils.checkpoint import latest_step, restore_state, save_state
+from sosvo_torch.utils.config import FrontendConfig, PipelineConfig
+from sosvo_torch.utils.framelog import read_jsonl, stepoutput_rows, write_jsonl
+from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
+from sosvo_torch.vo.batched import init_batched_states, run_replay_batched
+from sosvo_torch.vo.state import StepOutput
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+F, K = 12, 256
+
+
+def _states_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, torch.Generator):
+        return torch.equal(a.get_state(), b.get_state())
+    if isinstance(a, tuple):
+        return all(_states_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def test_checkpoint_roundtrip_resumes_exactly(tmp_path):
+    """BA replay checkpointed after frame 6 and restored into a fresh
+    template (other generator, other pose): the state, generator included,
+    is equal, and the tail replays to the same poses bit for bit."""
+    cfg = PipelineConfig(frontend=FrontendConfig(max_features=K))
+    rig, scene, obs = make_workload(cfg, F, 2048, "cpu")
+
+    def s0(seed, T0):
+        return init_ba_state(cfg, torch.Generator().manual_seed(seed), T0=T0, device="cpu")
+
+    _, full = run_replay_ba(rig, cfg, s0(2, scene.poses[0]), obs)
+    head = FrameObservations(*(x[:6] for x in obs))
+    tail = FrameObservations(*(x[6:] for x in obs))
+    mid, _ = run_replay_ba(rig, cfg, s0(2, scene.poses[0]), head)
+    save_state(tmp_path, 6, mid)
+    assert latest_step(tmp_path) == 6
+    restored = restore_state(tmp_path, 6, s0(9, None))
+    assert _states_equal(mid, restored)
+    _, out_tail = run_replay_ba(rig, cfg, restored, tail)
+    assert torch.equal(out_tail.vo.T_world, full.vo.T_world[6:])
+    assert torch.equal(out_tail.is_keyframe, full.is_keyframe[6:])
+
+
+def test_checkpoint_batched_state_roundtrip(tmp_path):
+    """A batched state (a tuple of lane generators) restores the same way."""
+    cfg = PipelineConfig(frontend=FrontendConfig(max_features=128))
+    state = init_batched_states(2, 128, 5, device="cpu")
+    rig, _, obs = make_workload(cfg, 3, 1024, "cpu")
+    obs2 = FrameObservations(*(torch.stack([x, x]) for x in obs))
+    mid, _ = run_replay_batched(rig, cfg, state, FrameObservations(*(x[:, :2] for x in obs2)))
+    save_state(tmp_path, 2, mid)
+    restored = restore_state(tmp_path, 2, init_batched_states(2, 128, 6, device="cpu"))
+    assert _states_equal(mid, restored)
+    with pytest.raises(ValueError):
+        restore_state(tmp_path, 2, init_batched_states(3, 128, 6, device="cpu"))
+
+
+def test_framelog_rows_match_reference(tmp_path):
+    """The port's copy of the per-frame log writes the JAX package's rows."""
+    rng = np.random.default_rng(0)
+    outs = StepOutput(T_world=rng.standard_normal((5, 4, 4)).astype(np.float32),
+                      n_stereo=np.arange(5, dtype=np.int32), n_temporal=np.arange(5, dtype=np.int32),
+                      n_inliers=np.arange(5, dtype=np.int32), pose_ok=np.arange(5) % 2 == 0,
+                      ess_angle_err=np.zeros(5, np.float32))
+    rows = stepoutput_rows(StepOutput(*(torch.tensor(x) for x in outs)), t_offset=3)
+    assert rows == jax_stepoutput_rows(outs, t_offset=3)
+    write_jsonl(tmp_path / "a.jsonl", rows[:2])
+    write_jsonl(tmp_path / "a.jsonl", rows[2:], append=True)
+    assert read_jsonl(tmp_path / "a.jsonl") == rows
+
+
+def _tiny_cfg(tmp_path) -> str:
+    """configs/c1_cpu_smoke.json at 128 features and 128 hypotheses."""
+    cfg = json.loads((ROOT / "configs/c1_cpu_smoke.json").read_text())
+    cfg["pipeline"]["frontend"]["max_features"] = 128
+    cfg["pipeline"]["ransac"]["n_hyps"] = 128
+    p = tmp_path / "c1_tiny.json"
+    p.write_text(json.dumps(cfg))
+    return str(p)
+
+
+def _fault_and_resume(tmp_path, extra):
+    """An uninterrupted run in this process; a run killed after frame 5 and
+    its resume, each a process of its own. Returns both output dirs."""
+    out_a, out_b = tmp_path / "full", tmp_path / "faulted"
+    args = ["--config", _tiny_cfg(tmp_path), "--device", "cpu", "--mode", "f2f",
+            "--ckpt-every", "4", *extra]
+    assert cli.main(args + ["--out", str(out_a)]) == 0
+    base = [sys.executable, "-m", "sosvo_torch.cli", *args, "--out", str(out_b)]
+    r = subprocess.run(base + ["--fault-inject", "5"], capture_output=True, text=True, cwd=ROOT)
+    assert r.returncode == 42, (r.returncode, r.stderr[-2000:])
+    assert latest_step(out_b / "ckpt") == 8
+    r = subprocess.run(base + ["--resume"], capture_output=True, text=True, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "resumed from checkpoint at frame 8" in r.stdout
+    return out_a, out_b
+
+
+def test_cli_fault_resume(tmp_path):
+    """Kill the command line mid-replay, resume: the identical JSONL log."""
+    out_a, out_b = _fault_and_resume(tmp_path, [])
+    a = (out_a / "frames.jsonl").read_text()
+    assert a == (out_b / "frames.jsonl").read_text()
+    assert len(a.splitlines()) == 10
+
+
+def test_cli_fault_resume_pgo(tmp_path):
+    """Resume + PGO consumes the checkpointed estimated trajectory: the
+    resumed run's loops and ATE equal the uninterrupted run's."""
+    out_a, out_b = _fault_and_resume(tmp_path, ["--pgo"])
+    rep_a = json.loads((out_a / "report.json").read_text())
+    rep_b = json.loads((out_b / "report.json").read_text())
+    assert rep_a["pgo_loops"] == rep_b["pgo_loops"]
+    assert rep_a["ate_rmse_m"] == rep_b["ate_rmse_m"], (rep_a, rep_b)
+    assert (out_a / "frames.jsonl").read_text() == (out_b / "frames.jsonl").read_text()
+
+
+def test_cli_batched_runs_both_modes(tmp_path):
+    """The batched branch (dist.data_parallel > 1) runs end to end in f2f
+    and BA modes and reports every lane."""
+    cfg = {
+        "run": {"n_frames": 6, "n_landmarks": 2048, "n_sequences": 2},
+        "pipeline": {
+            "frontend": {"max_features": 128},
+            "ransac": {"n_hyps": 128},
+            "ba": {"window": 3, "max_landmarks": 256, "iters": 2, "use_pallas_schur": False},
+            "dist": {"data_parallel": 2},
+            "mode": "observations",
+            "keyframe_every": 3,
+        },
+    }
+    p = tmp_path / "c4_tiny.json"
+    p.write_text(json.dumps(cfg))
+    for mode in ("f2f", "ba"):
+        out = tmp_path / f"out_{mode}"
+        assert cli.main(["--config", str(p), "--device", "cpu", "--mode", mode,
+                         "--out", str(out)]) == 0
+        rep = json.loads((out / "report.json").read_text())
+        assert rep["mode"] == f"batched-{mode}"
+        assert rep["n_sequences"] == 2
+        assert all(a < 0.05 for a in rep["ate_per_sequence"]), rep
+        rows = read_jsonl(out / "frames.jsonl")
+        assert len(rows) == 6 and all(r["pose_ok"] for r in rows[1:])
+
+
+NOT_PORTED = (NotImplementedError, "ROADMAP.md section 1, item '")
+NOT_BATCHED = (ValueError, "non-batched only")
+
+
+@pytest.mark.parametrize("extra, pipeline, error", [
+    (["--sequence", "capture.npz"], {}, NOT_PORTED), (["--rig", "rig.json"], {}, NOT_PORTED),
+    (["--viz"], {}, NOT_PORTED), (["--verify-sharded"], {}, NOT_PORTED),
+    ([], {"dist": {"model_parallel": 2}}, NOT_PORTED),
+    ([], {"dist": {"pgo_shards": 2}}, NOT_PORTED),
+    (["--pgo"], {"dist": {"data_parallel": 2}}, NOT_BATCHED),
+    ([], {"dist": {"data_parallel": 2}, "pose_graph": True}, NOT_BATCHED),
+    (["--source", "images"], {"dist": {"data_parallel": 2}}, (ValueError, "observation-mode"))],
+    ids=["sequence", "rig", "viz", "verify_sharded", "model_parallel", "pgo_shards",
+         "batched_pgo", "batched_pose_graph", "batched_images"])
+def test_cli_refuses_what_is_not_ported(tmp_path, extra, pipeline, error):
+    """An option or setting the port does not run raises before anything
+    runs: what is not ported yet names its ROADMAP item, and PGO or the
+    image source with the batched replay are refused, as the batched branch
+    runs neither. None is ignored."""
+    cfg = json.loads(Path(_tiny_cfg(tmp_path)).read_text())
+    cfg["pipeline"].update(pipeline)
+    p = tmp_path / "c.json"
+    p.write_text(json.dumps(cfg))
+    exc, match = error
+    with pytest.raises(exc, match=match):
+        cli.main(["--config", str(p), "--device", "cpu", "--out", str(tmp_path / "o"), *extra])
+    assert not (tmp_path / "o").exists()

@@ -18,7 +18,9 @@ names = [m.name for m in pkgutil.walk_packages(sosvo_torch.__path__, "sosvo_torc
 assert {"sosvo_torch.backend.pose_graph", "sosvo_torch.vo.loop_closure",
         "sosvo_torch.synth.render", "sosvo_torch.frontend.panorama", "sosvo_torch.frontend.detect",
         "sosvo_torch.frontend.descriptor", "sosvo_torch.frontend.image_frontend",
-        "sosvo_torch.vo.image_pipeline", "sosvo_torch.tools.frontend_parity"} <= set(names), names
+        "sosvo_torch.vo.image_pipeline", "sosvo_torch.tools.frontend_parity",
+        "sosvo_torch.vo.batched", "sosvo_torch.utils.framelog", "sosvo_torch.utils.checkpoint",
+        "sosvo_torch.cli"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "sosvo" or m.startswith("sosvo.")
@@ -32,5 +34,5 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # every module was walked, the loop-closure and image slices' too
-    assert int(out.stdout.strip()) >= 51
+    # every module was walked, the loop-closure, image and batched slices' too
+    assert int(out.stdout.strip()) >= 56
