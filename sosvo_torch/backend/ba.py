@@ -1,5 +1,5 @@
 """Windowed bundle adjustment: Levenberg-Marquardt with a Schur complement
-(counterpart of `sosvo/backend/ba.py`, without landmark sharding).
+(counterpart of `sosvo/backend/ba.py`).
 
 The window is a dense fixed-size problem: W keyframe poses x L landmark
 slots x 2 views, with a (W, L, 2) weight mask selecting real observations.
@@ -17,6 +17,14 @@ Differences from the reference:
     CUDA tensors, its plain version on CPU tensors. There is no switch.
   * `lax.scan` becomes a Python loop of fixed length; accept/reject stays a
     `torch.where` on the device, so `ba_solve` never reads back from it.
+
+Landmark sharding (config c5): with `axis` (a `sosvo_torch.dist.mesh.Axis`,
+the counterpart of `axis_name`) the window's landmark axis holds this
+rank's shard. The landmark sums the JAX package psums are summed over the
+axis: the costs, and per LM step H_cc, b_c, the gauge `coupling` and the
+Schur reduction's S_off and b_sub, all five in one buffer. Damping and the
+gauge prior are added after the sum, so once and alike on every rank; every
+accept/reject keys on a summed cost, so all ranks take the same branch.
 """
 
 from __future__ import annotations
@@ -25,9 +33,9 @@ from typing import NamedTuple
 
 import torch
 
-from sosvo_torch.backend.schur import apply_pose_updates, back_substitute
+from sosvo_torch.backend.schur import apply_pose_updates, assemble_camera_system, back_substitute
 from sosvo_torch.geom.lie import norm
-from sosvo_torch.kernels.schur_cuda import reduce_camera_system_cuda
+from sosvo_torch.kernels.schur_cuda import reduce_camera_system_cuda, schur_parts
 
 GAUGE_PRIOR = 1e8
 
@@ -101,10 +109,11 @@ def _pair_jacobians(win: BAWindow):
     return r, J_pose, J_lm
 
 
-def build_blocks(win: BAWindow):
+def build_blocks(win: BAWindow, axis=None):
     """All BA normal-equation blocks over the dense (W, L) grid:
     H_cc (W, 6, 6), H_cl (W, L, 6, 3), H_ll (L, 3, 3), b_c (W, 6),
-    b_l (L, 3), cost ()."""
+    b_l (L, 3), cost (). With `axis` the landmark-indexed blocks are this
+    shard's and H_cc, b_c and cost are summed over the axis."""
     r, J_pose, J_lm = _pair_jacobians(win)
     H_cc = torch.einsum("wlri,wlrj->wij", J_pose, J_pose)
     H_cl = torch.einsum("wlri,wlrj->wlij", J_pose, J_lm)
@@ -112,13 +121,17 @@ def build_blocks(win: BAWindow):
     b_c = torch.einsum("wlri,wlr->wi", J_pose, r)
     b_l = torch.einsum("wlri,wlr->li", J_lm, r)
     cost = 0.5 * torch.sum(r * r)
+    if axis is not None:
+        H_cc, b_c, cost = axis.psum(H_cc, b_c, cost)
     return H_cc, H_cl, H_ll, b_c, b_l, cost
 
 
-def ba_cost(win: BAWindow) -> torch.Tensor:
-    """Weighted SSE of the window (no Jacobians; the accept/reject probe)."""
+def ba_cost(win: BAWindow, axis=None) -> torch.Tensor:
+    """Weighted SSE of the window (no Jacobians; the accept/reject probe),
+    summed over `axis`."""
     r = _residuals(win)
-    return 0.5 * torch.sum(r * r)
+    cost = 0.5 * torch.sum(r * r)
+    return cost if axis is None else axis.psum(cost)
 
 
 def huber_weights(win: BAWindow, delta: float) -> torch.Tensor:
@@ -130,29 +143,45 @@ def huber_weights(win: BAWindow, delta: float) -> torch.Tensor:
     return torch.sqrt(torch.where(nrm <= delta, one, delta / torch.clamp_min(nrm, 1e-12)))
 
 
-def lm_step(win: BAWindow, lam: torch.Tensor, anchor: torch.Tensor | int = 0) -> BAWindow:
+def lm_step(win: BAWindow, lam: torch.Tensor, anchor: torch.Tensor | int = 0,
+            axis=None) -> BAWindow:
     """One damped LM step: build blocks, Schur-reduce, solve, back-substitute.
 
     Returns the CANDIDATE window (the caller decides accept/reject).
     `anchor` is the gauge keyframe slot (an int or a 0-dim device tensor).
+    With `axis`, each rank reduces its landmark shard, the camera system is
+    summed over the axis and solved alike on every rank, and each rank
+    back-substitutes its own landmarks.
     """
     W = win.X.shape[0]
     dtype, device = win.X.dtype, win.X.device
     H_cc, H_cl, H_ll, b_c, b_l, _ = build_blocks(win)
+    # Gauge support must agree on every rank: H_cl holds this shard only.
+    coupling = torch.sum(torch.abs(H_cl), dim=(1, 2, 3))
+    if axis is not None:
+        # This shard's Schur partials first (the kernel's S goes unused), then
+        # every landmark sum in one all-reduce.
+        parts = schur_parts(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc=False)
+        H_cc, b_c, coupling, S_off, b_sub = axis.psum(H_cc, b_c, coupling, parts.S_off,
+                                                      parts.b_sub)
 
     eye6 = torch.eye(6, dtype=dtype, device=device)
     one_hot = (torch.arange(W, device=device) == anchor).to(dtype)
+    # Damping and the gauge prior come after the sum: applied once.
     H_cc = H_cc + lam * eye6[None]
     # Gauge: clamp the anchor keyframe with a huge prior; unobserved pose
     # slots (all-zero rows) get it too, so the reduced system stays regular.
-    coupling = torch.sum(torch.abs(H_cl), dim=(1, 2, 3))
     row_support = torch.sum(torch.abs(b_c), dim=-1) + coupling
     unobserved = (row_support == 0.0).to(dtype)
     clamp = torch.maximum(one_hot, unobserved)
     H_cc = H_cc + (GAUGE_PRIOR * clamp)[:, None, None] * eye6[None]
 
-    S, b_red, H_ll_inv = reduce_camera_system_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam,
-                                                   damp_H_cc=False)
+    if axis is None:
+        S, b_red, H_ll_inv = reduce_camera_system_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam,
+                                                       damp_H_cc=False)
+    else:
+        S, b_red = assemble_camera_system(H_cc, b_c, S_off, b_sub)
+        H_ll_inv = parts.H_ll_inv
 
     # Dense solve of the reduced (6W, 6W) camera system (cameras are few).
     # `solve_ex` leaves its status on the device: no read-back.
@@ -166,12 +195,15 @@ def lm_step(win: BAWindow, lam: torch.Tensor, anchor: torch.Tensor | int = 0) ->
 
 
 def ba_solve(win: BAWindow, iters: int = 5, lam0: float = 1e-3,
-             anchor: torch.Tensor | int = 0, huber_delta: float | None = None) -> BAResult:
+             anchor: torch.Tensor | int = 0, huber_delta: float | None = None,
+             axis=None) -> BAResult:
     """Levenberg-Marquardt with multiplicative damping adaptation: accept a
     step iff it lowers the cost (then lam /= 3), else keep the old state and
     raise lam x 9; a fixed number of iterations, all decisions on the device.
+    With `axis` the window's landmarks are this rank's shard (the result's
+    too) and every decision keys on costs summed over the axis.
     """
-    cost0 = ba_cost(win)
+    cost0 = ba_cost(win, axis)
     lam = torch.full((), lam0, dtype=win.X.dtype, device=win.X.device)
     w, cost = win, cost0
     accepted = []
@@ -180,11 +212,11 @@ def ba_solve(win: BAWindow, iters: int = 5, lam0: float = 1e-3,
             # IRLS: freeze the Huber multipliers at the current state; the
             # candidate and the current state are compared under them.
             w_eff = w._replace(weights=w.weights * huber_weights(w, huber_delta))
-            cost = ba_cost(w_eff)
+            cost = ba_cost(w_eff, axis)
         else:
             w_eff = w
-        cand = lm_step(w_eff, lam, anchor)
-        cand_cost = ba_cost(cand._replace(weights=w_eff.weights))
+        cand = lm_step(w_eff, lam, anchor, axis)
+        cand_cost = ba_cost(cand._replace(weights=w_eff.weights), axis)
         accept = cand_cost < cost
         w = w._replace(X=torch.where(accept, cand.X, w.X),
                        landmarks=torch.where(accept, cand.landmarks, w.landmarks))

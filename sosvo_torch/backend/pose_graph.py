@@ -1,5 +1,5 @@
 """Pose-graph optimisation over SE(3) edge constraints (counterpart of
-`sosvo/backend/pose_graph.py`, without edge sharding).
+`sosvo/backend/pose_graph.py`).
 
 A fixed-size graph: N node slots, E edge slots, validity masks. Nodes store
 X = rig-from-world; an edge (i, j) measures T_meas ~= X_i @ X_j^-1 and its
@@ -24,7 +24,11 @@ Differences from the reference, all forced by eager PyTorch:
     card are bit-identical (`index_add` adds through atomics there).
   * The dense solve is `torch.linalg.solve_ex`, the library solve without
     the status read-back that `torch.linalg.solve` makes.
-  * No `axis_name`: the edge-sharded solve is not ported.
+
+Edge sharding: with `axis` (a `sosvo_torch.dist.mesh.Axis`, the
+counterpart of `axis_name`) each rank holds a block of the edges and the
+replicated nodes; H, b, the block diagonal, the costs and every PCG matvec
+are summed over the axis, so every rank takes the same steps.
 """
 
 from __future__ import annotations
@@ -104,11 +108,12 @@ def _robust_edge_weight(g: PoseGraph, robust: str, delta: float) -> torch.Tensor
     return robust_omega(torch.sum(r * r, dim=-1), robust, delta)
 
 
-def _robust_cost(g: PoseGraph, robust: str, delta: float) -> torch.Tensor:
+def _robust_cost(g: PoseGraph, robust: str, delta: float, axis=None) -> torch.Tensor:
     """sum_e rho(||w_e r_e||^2) / 2: the accept/reject metric (the rho-cost,
-    not the reweighted quadratic of stale weights)."""
+    not the reweighted quadratic of stale weights), summed over `axis`."""
     r = _weighted_residuals(g)
-    return 0.5 * torch.sum(robust_rho(torch.sum(r * r, dim=-1), robust, delta))
+    cost = 0.5 * torch.sum(robust_rho(torch.sum(r * r, dim=-1), robust, delta))
+    return cost if axis is None else axis.psum(cost)
 
 
 def _edge_jacobians(X_i, X_j, T_meas, w):
@@ -145,7 +150,7 @@ def _scatter_rows(n: int, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return (_one_hot(idx, n, src.dtype).T @ flat).reshape((n,) + src.shape[1:])
 
 
-def build_system(g: PoseGraph):
+def build_system(g: PoseGraph, axis=None):
     """(H (N, N, 6, 6), b (N, 6), cost ()) of the GN normal equations.
 
     H = J^T J and b = J^T r over the stacked (6E, 6N) edge Jacobian, which
@@ -160,13 +165,15 @@ def build_system(g: PoseGraph):
          + torch.einsum("erc,en->ernc", J_j, _one_hot(g.ej, N, J_j.dtype))).reshape(6 * E, 6 * N)
     H = (J.T @ J).reshape(N, 6, N, 6).permute(0, 2, 1, 3)
     b = (J.T @ r.reshape(6 * E, 1)).reshape(N, 6)
-    return H, b, 0.5 * torch.sum(r * r)
+    cost = 0.5 * torch.sum(r * r)
+    return (H, b, cost) if axis is None else axis.psum(H, b, cost)
 
 
-def pgo_cost(g: PoseGraph) -> torch.Tensor:
-    """0.5 sum_e ||w_e r_e||^2."""
+def pgo_cost(g: PoseGraph, axis=None) -> torch.Tensor:
+    """0.5 sum_e ||w_e r_e||^2, summed over `axis`."""
     r = _weighted_residuals(g)
-    return 0.5 * torch.sum(r * r)
+    cost = 0.5 * torch.sum(r * r)
+    return cost if axis is None else axis.psum(cost)
 
 
 def _node_clamp(g: PoseGraph, anchor) -> torch.Tensor:
@@ -176,23 +183,27 @@ def _node_clamp(g: PoseGraph, anchor) -> torch.Tensor:
     return torch.maximum(one_hot, 1.0 - g.node_valid.to(g.X.dtype))
 
 
-def _pcg(matvec, precond, b: torch.Tensor, iters: int) -> torch.Tensor:
+def _pcg(matvec, precond, b: torch.Tensor, iters: int, dot=None) -> torch.Tensor:
     """Preconditioned conjugate gradients, a fixed iteration count; the
     1e-30 floor on both denominators sends alpha and beta to 0 once the
-    residual underflows."""
+    residual underflows. `dot` replaces the inner product (a sharded caller
+    sums it over its axis)."""
+    if dot is None:
+        def dot(a, c):
+            return torch.sum(a * c)
     eps = torch.full((), 1e-30, dtype=b.dtype, device=b.device)
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
     p = z
-    rz = torch.sum(r * z)
+    rz = dot(r, z)
     for _ in range(iters):
         Ap = matvec(p)
-        alpha = rz / torch.maximum(torch.sum(p * Ap), eps)
+        alpha = rz / torch.maximum(dot(p, Ap), eps)
         x = x + alpha * p
         r = r - alpha * Ap
         z = precond(r)
-        rz2 = torch.sum(r * z)
+        rz2 = dot(r, z)
         beta = rz2 / torch.maximum(rz, eps)
         p = z + beta * p
         rz = rz2
@@ -204,9 +215,10 @@ def _apply_step(g: PoseGraph, delta: torch.Tensor, clamp: torch.Tensor) -> PoseG
     return g._replace(X=torch.einsum("nij,njk->nik", se3_exp(delta), g.X))
 
 
-def _gn_step_cg(g: PoseGraph, lam, anchor, cg_iters: int) -> PoseGraph:
+def _gn_step_cg(g: PoseGraph, lam, anchor, cg_iters: int, axis=None) -> PoseGraph:
     """One damped GN step with a matrix-free block-Jacobi PCG solve (O(E)
-    memory instead of the dense path's O(N^2) blocks)."""
+    memory instead of the dense path's O(N^2) blocks). With `axis` b, the
+    block diagonal (one buffer) and every matvec are summed over it."""
     r, J_i, J_j = _edge_terms(g)
     N = g.X.shape[0]
     eye6 = torch.eye(6, dtype=g.X.dtype, device=g.X.device)
@@ -215,6 +227,8 @@ def _gn_step_cg(g: PoseGraph, lam, anchor, cg_iters: int) -> PoseGraph:
                                           torch.einsum("erc,er->ec", J_j, r)]))
     D = _scatter_rows(N, ends, torch.cat([torch.einsum("eri,erj->eij", J_i, J_i),
                                           torch.einsum("eri,erj->eij", J_j, J_j)]))
+    if axis is not None:
+        b, D = axis.psum(b, D)
     clamp = _node_clamp(g, anchor)
     diag_add = lam + GAUGE_PRIOR * clamp
     D = D + diag_add[:, None, None] * eye6
@@ -223,6 +237,8 @@ def _gn_step_cg(g: PoseGraph, lam, anchor, cg_iters: int) -> PoseGraph:
         t = torch.einsum("erc,ec->er", J_i, v[g.ei]) + torch.einsum("erc,ec->er", J_j, v[g.ej])
         u = _scatter_rows(N, ends, torch.cat([torch.einsum("erc,er->ec", J_i, t),
                                               torch.einsum("erc,er->ec", J_j, t)]))
+        if axis is not None:
+            u = axis.psum(u)
         return u + diag_add[:, None] * v
 
     # The block diagonal is inverted once, in closed form.
@@ -231,10 +247,10 @@ def _gn_step_cg(g: PoseGraph, lam, anchor, cg_iters: int) -> PoseGraph:
     return _apply_step(g, delta, clamp)
 
 
-def _gn_step(g: PoseGraph, lam, anchor) -> PoseGraph:
+def _gn_step(g: PoseGraph, lam, anchor, axis=None) -> PoseGraph:
     """One damped GN step with the dense 6N x 6N solve."""
     N = g.X.shape[0]
-    H, b, _ = build_system(g)
+    H, b, _ = build_system(g, axis)
     # Invalid node slots get the gauge prior too, so H stays nonsingular.
     clamp = _node_clamp(g, anchor)
     eye6 = torch.eye(6, dtype=g.X.dtype, device=g.X.device)
@@ -247,7 +263,7 @@ def _gn_step(g: PoseGraph, lam, anchor) -> PoseGraph:
 
 def pgo_solve(g: PoseGraph, iters: int = 10, lam0: float = 1e-4,
               anchor: torch.Tensor | int = 0, solver: str = "dense", cg_iters: int = 32,
-              robust: str = "none", robust_delta: float = 0.1) -> PGOResult:
+              robust: str = "none", robust_delta: float = 0.1, axis=None) -> PGOResult:
     """Damped GN with accept/reject, a fixed iteration count.
 
     solver="dense": the exact 6N x 6N solve; "cg": matrix-free block-Jacobi
@@ -255,13 +271,14 @@ def pgo_solve(g: PoseGraph, iters: int = 10, lam0: float = 1e-4,
     `robust_delta`, the weights recomputed from the current estimate every
     iteration; cost and cost0 are then the robustified objective. A step is
     kept iff it lowers the cost (lam / 3), else lam x 9, clipped to
-    [1e-9, 1e4].
+    [1e-9, 1e4]. With `axis` (edge sharding) g holds this rank's edges and
+    every node; the result is the same on every rank.
     """
     if solver not in ("dense", "cg"):
         raise ValueError(f"unknown solver {solver!r}")
     if robust not in ("none", "huber", "dcs"):
         raise ValueError(f"unknown robust kernel {robust!r}")
-    cost0 = _robust_cost(g, robust, robust_delta)
+    cost0 = _robust_cost(g, robust, robust_delta, axis)
     lam = torch.full((), lam0, dtype=g.X.dtype, device=g.X.device)
     cost = cost0
     accepted = []
@@ -272,10 +289,10 @@ def pgo_solve(g: PoseGraph, iters: int = 10, lam0: float = 1e-4,
             # weights for this linearisation only (g keeps the raw w).
             gw = g._replace(w=g.w * torch.sqrt(_robust_edge_weight(g, robust, robust_delta)))
         if solver == "cg":
-            cand = _gn_step_cg(gw, lam, anchor, cg_iters)
+            cand = _gn_step_cg(gw, lam, anchor, cg_iters, axis)
         else:
-            cand = _gn_step(gw, lam, anchor)
-        cand_cost = _robust_cost(g._replace(X=cand.X), robust, robust_delta)
+            cand = _gn_step(gw, lam, anchor, axis)
+        cand_cost = _robust_cost(g._replace(X=cand.X), robust, robust_delta, axis)
         accept = cand_cost < cost
         g = g._replace(X=torch.where(accept, cand.X, g.X))
         lam = torch.clamp(torch.where(accept, lam / 3.0, lam * 9.0), 1e-9, 1e4)

@@ -1,5 +1,5 @@
 """Closed-form small solvers and the Schur-complement primitives of windowed
-BA (counterpart of `sosvo/backend/schur.py`, without landmark sharding).
+BA (counterpart of `sosvo/backend/schur.py`).
 
 `inv3x3` followed by `reduce_camera_system` is the plain version of the CUDA
 Schur-reduction kernel (`sosvo_torch/kernels/schur_cuda.py`): the wrapper
@@ -68,16 +68,22 @@ def inv6x6_spd(H: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_camera_system(H_cc: torch.Tensor, H_cl: torch.Tensor, H_ll_inv: torch.Tensor,
-                         b_c: torch.Tensor, b_l: torch.Tensor):
+                         b_c: torch.Tensor, b_l: torch.Tensor, axis=None):
     """Schur complement of the landmark blocks onto the camera system.
 
         S[w, w'] = delta_ww' H_cc[w] - sum_l H_cl[w,l] H_ll_inv[l] H_cl[w',l]^T
         b_red[w] = b_c[w] - sum_l H_cl[w,l] H_ll_inv[l] b_l[l]
 
     H_cc (W, 6, 6) (already damped), H_cl (W, L, 6, 3), H_ll_inv (L, 3, 3),
-    b_c (W, 6), b_l (L, 3) -> S (W, W, 6, 6), b_red (W, 6).
+    b_c (W, 6), b_l (L, 3) -> S (W, W, 6, 6), b_red (W, 6). With `axis`
+    (landmark sharding) H_cl, H_ll_inv and b_l are this rank's shard and
+    H_cc, b_c global: the shard's S_off and b_sub are summed over the axis
+    before the assembly.
     """
-    return assemble_camera_system(H_cc, b_c, *schur_terms(H_cl, H_ll_inv, b_l))
+    S_off, b_sub = schur_terms(H_cl, H_ll_inv, b_l)
+    if axis is not None:
+        S_off, b_sub = axis.psum(S_off, b_sub)
+    return assemble_camera_system(H_cc, b_c, S_off, b_sub)
 
 
 def schur_terms(H_cl: torch.Tensor, H_ll_inv: torch.Tensor, b_l: torch.Tensor):

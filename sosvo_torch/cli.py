@@ -24,8 +24,25 @@ checkpoint and writes the same log as an uninterrupted run.
   in BA mode, the replay's own keyframes;
 * `dist.data_parallel > 1` (config c4): that many sequences (or the run
   block's `n_sequences`), each its own scene, replayed in lockstep by
-  `vo/batched.py` on one device; observation mode only, no PGO, and the
-  stride keyframe schedule whatever `keyframe_mode` says.
+  `vo/batched.py`; observation mode only, no PGO, and the stride keyframe
+  schedule whatever `keyframe_mode` says;
+* ranks (`torchrun --nproc-per-node D -m sosvo_torch.cli ...`, or
+  `python -m sosvo_torch.dist.launch --nproc D -m sosvo_torch.cli ...`),
+  as the JAX command line's mesh over its devices, each axis clamped to the
+  world size D as the JAX package clamps to its devices:
+  - `dist.data_parallel`: min(data_parallel, D), lowered until it divides
+    the sequences; each rank replays its block of lanes with their own
+    generators (`vo/batched.py:shard_batched_inputs`);
+  - `dist.model_parallel > 1` (config c5, BA mode): min(model_parallel,
+    D), lowered until it divides `ba.max_landmarks`; every rank replays
+    every frame and each window solve is landmark-sharded
+    (`dist/replay_dist.py`); `--verify-sharded` replays once more on one
+    device and reports the largest pose difference;
+  - `dist.pgo_shards > 1` (the c3_long presets): rank 0 replays, then
+    broadcasts the keyframes' observations and the trajectory, and
+    min(pgo_shards, D) ranks close the loops (`dist/c3_dist.py`).
+  Rank 0 writes the report, the log and the checkpoints, and every rank
+  resumes from them; `--fault-inject` ends every rank.
 The random streams are the port's own seeded generators, so its ATE is
 compared with the JAX package's by limits, not digit for digit.
 Options of the JAX command line that are not ported raise
@@ -45,17 +62,12 @@ from pathlib import Path
 
 import numpy as np
 
-# Options and presets the port does not run yet, with the ROADMAP.md item
-# that ports them.
+# Options the port does not run yet, with the ROADMAP.md item that ports them.
 SIDE = "ROADMAP.md section 1, item 'Side modules'"
-DIST = "ROADMAP.md section 1, item 'Distribution (c5)'"
 NOT_PORTED = {
     "sequence": f"staged captures (data/sequence.py): {SIDE}",
     "rig": f"rig calibration files (sensor/calib_io.py): {SIDE}",
     "viz": f"plots and viewers (eval/plots, viz, html_viewer): {SIDE}",
-    "verify_sharded": f"the model-sharded replay (config c5): {DIST}",
-    "model_parallel": f"the model-sharded window BA (config c5): {DIST}",
-    "pgo_shards": f"sharded loop closing and PGO (the c3_long presets): {DIST}",
 }
 
 
@@ -63,14 +75,14 @@ def _refuse_unported(args, cfg) -> None:
     """Raise, before anything runs, for an option the port does not run:
     NotImplementedError for what is not ported yet, ValueError for what the
     batched replay does not run (in the JAX package neither)."""
-    for flag in ("sequence", "rig", "viz", "verify_sharded"):
+    for flag in ("sequence", "rig", "viz"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported to sosvo_torch "
                                       f"yet: {NOT_PORTED[flag]}")
-    for field in ("model_parallel", "pgo_shards"):
-        if getattr(cfg.dist, field) > 1:
-            raise NotImplementedError(f"dist.{field} > 1 is not ported to sosvo_torch yet: "
-                                      f"{NOT_PORTED[field]}")
+    if args.verify_sharded and (args.mode != "ba" or cfg.dist.model_parallel <= 1
+                                or cfg.dist.data_parallel > 1):
+        raise ValueError("--verify-sharded checks the model-sharded BA replay: it needs "
+                         "--mode ba and dist.model_parallel > 1")
     if cfg.dist.data_parallel > 1:
         if _source(args, cfg) != "obs":
             raise ValueError("the batched replay (dist.data_parallel > 1) is observation-mode (c4)")
@@ -82,6 +94,14 @@ def _refuse_unported(args, cfg) -> None:
 
 def _source(args, cfg) -> str:
     return args.source or ("images" if cfg.mode == "images" else "obs")
+
+
+def _clamp(want: int, world: int, total: int) -> int:
+    """min(want, world), lowered until it divides `total`."""
+    n = max(1, min(want, world))
+    while total % n:
+        n -= 1
+    return n
 
 
 def main(argv=None) -> int:
@@ -103,13 +123,19 @@ def main(argv=None) -> int:
                     help="where the replay runs; cuda fails without a card")
     ap.add_argument("--sequence", default=None, help="not ported yet")
     ap.add_argument("--rig", default=None, help="not ported yet")
-    ap.add_argument("--verify-sharded", action="store_true", help="not ported yet")
+    ap.add_argument("--verify-sharded", action="store_true",
+                    help="with dist.model_parallel > 1: replay once more on one device and "
+                         "report the largest pose difference")
     ap.add_argument("--viz", action="store_true", help="not ported yet")
     args = ap.parse_args(argv)
 
     import torch
 
+    from sosvo_torch.dist import mesh as dmesh
+    from sosvo_torch.dist.c3_dist import refine_keyframes_sharded
+    from sosvo_torch.dist.replay_dist import run_replay_ba_sharded
     from sosvo_torch.eval.ate import ate_rmse, rpe
+    from sosvo_torch.sensor.rig import default_rig
     from sosvo_torch.synth.scene import FrameObservations
     from sosvo_torch.tools.workload import (SEED, make_batched_workload, make_image_workload,
                                             make_workload)
@@ -118,15 +144,19 @@ def main(argv=None) -> int:
     from sosvo_torch.utils.device import default_device
     from sosvo_torch.utils.framelog import stepoutput_rows, write_jsonl
     from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
-    from sosvo_torch.vo.batched import (init_batched_ba_states, init_batched_states,
-                                        run_replay_ba_batched, run_replay_batched)
-    from sosvo_torch.vo.loop_closure import pgo_refine_trajectory
+    from sosvo_torch.vo.batched import (gather_lanes, init_batched_ba_states,
+                                        init_batched_states, run_replay_ba_batched,
+                                        run_replay_batched, shard_batched_inputs)
+    from sosvo_torch.vo.loop_closure import keyframe_indices, pgo_refine_trajectory
     from sosvo_torch.vo.pipeline import run_replay
     from sosvo_torch.vo.state import init_track_state, lane
 
     cfg = load_pipeline_config(args.config)
     _refuse_unported(args, cfg)
-    device = default_device() if args.device == "cuda" else torch.device("cpu")
+    if args.device == "cuda":
+        default_device()  # raises where no card is
+    ranks = dmesh.init_process_group("cpu" if args.device == "cpu" else None, timeout_s=3600)
+    device, lead = ranks.device, ranks.rank == 0
     run = json.loads(Path(args.config).read_text()).get("run", {})
     n_frames = int(run.get("n_frames", 10))
     n_landmarks = int(run.get("n_landmarks", 4096))
@@ -143,14 +173,35 @@ def main(argv=None) -> int:
     source = _source(args, cfg)
     batched = cfg.dist.data_parallel > 1
     S = int(run.get("n_sequences", cfg.dist.data_parallel)) if batched else 1
+    pgo = bool(args.pgo or cfg.pose_graph)
+    sharded_replay = not batched and args.mode == "ba" and cfg.dist.model_parallel > 1
+    # The mesh, every axis clamped to the world as the JAX command line
+    # clamps to its devices (one process: the one-device mesh).
+    dp = _clamp(cfg.dist.data_parallel, ranks.world, S) if batched else 1
+    mp = _clamp(cfg.dist.model_parallel, ranks.world, cfg.ba.max_landmarks) \
+        if sharded_replay else 1
+    shards = min(cfg.dist.pgo_shards, ranks.world) if pgo else 1
+    replay_mesh = dmesh.make_mesh(ranks, dp, mp)
+    pgo_mesh = dmesh.make_mesh(ranks, shards, 1)
+    replays = replay_mesh.member if (batched or sharded_replay) else lead
+    in_pgo = pgo and cfg.dist.pgo_shards > 1 and pgo_mesh.member
+    if not (replays or in_pgo):  # a rank no axis uses
+        dmesh.shutdown()
+        return 0
+    rank_axis = replay_mesh.axis(dmesh.DATA_AXIS if batched else dmesh.MODEL_AXIS)
     state_gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    rig = default_rig(device=device)
+    gt = obs = None
 
-    if batched:
-        # c4: S sequences in lockstep, each its own scene, on one device.
+    if not replays:
+        pass  # this rank joins the loop-closing leg only
+    elif batched:
+        # c4: S sequences in lockstep, each its own scene; each rank of the
+        # data axis replays its block of lanes.
         rig, gt, obs = make_batched_workload(cfg, S, n_frames, n_landmarks, device,
                                              pixel_noise, desc_flip)
         if args.mode == "ba":
-            if cfg.keyframe_mode == "adaptive":
+            if cfg.keyframe_mode == "adaptive" and lead:
                 print("WARNING: the batched BA replay keeps the lanes in lockstep on the stride "
                       "keyframe schedule; keyframe_mode='adaptive' is ignored in this mode.",
                       file=sys.stderr)
@@ -162,6 +213,7 @@ def main(argv=None) -> int:
             replay_chunk = lambda s, o: run_replay_batched(rig, cfg, s, o)  # noqa: E731
             get_T, get_vo = (lambda o: o.T_world), (lambda o: lane(o, 0))  # log sequence 0
         get_kf = None  # PGO, the keyframe flags' consumer, is non-batched only
+        obs_all, obs = obs, shard_batched_inputs(replay_mesh, None, obs)[1]
         slice_obs = lambda f, hi: FrameObservations(*(x[:, f:hi] for x in obs))  # noqa: E731
     else:
         if source == "images":
@@ -179,7 +231,11 @@ def main(argv=None) -> int:
         slice_obs = lambda f, hi: FrameObservations(*(x[f:hi] for x in obs))  # noqa: E731
         if args.mode == "ba":
             state0 = init_ba_state(cfg, state_gen, T0=gt[0], device=device)
-            replay_chunk = lambda s, o: run_replay_ba(rig, cfg, s, o)  # noqa: E731
+            if sharded_replay:
+                replay_chunk = lambda s, o: run_replay_ba_sharded(  # noqa: E731
+                    replay_mesh, rig, cfg, s, o)
+            else:
+                replay_chunk = lambda s, o: run_replay_ba(rig, cfg, s, o)  # noqa: E731
             get_T, get_vo, get_kf = (lambda o: o.vo.T_world), (lambda o: o.vo), \
                 (lambda o: o.is_keyframe)
         else:
@@ -189,67 +245,95 @@ def main(argv=None) -> int:
 
     fax = 1 if batched else 0  # the frame axis of stacked trajectories
     start_frame = 0
-    state = state0
-    traj_prefix = np.zeros((S, 0, 4, 4) if batched else (0, 4, 4), np.float32)
-    kf_prefix = np.zeros((0,), bool)
-    if args.resume:
-        step = latest_step(ckpt_dir)
-        if step is not None:
-            state = restore_state(ckpt_dir, step, state0)
-            start_frame = step
-            # The ESTIMATED trajectory up to the checkpoint, never ground
-            # truth: PGO below consumes the whole estimated trajectory.
-            traj_prefix = np.load(ckpt_dir / f"traj_{step:08d}.npy")
-            kf_path = ckpt_dir / f"kf_{step:08d}.npy"
-            if kf_path.exists():  # the BA replay's actual keyframes, for PGO
-                kf_prefix = np.load(kf_path)
-            print(f"[sosvo_torch] resumed from checkpoint at frame {step}")
-
-    chunk = max(1, args.ckpt_every)
-    all_T, all_kf = [traj_prefix], [kf_prefix]
+    all_T = [np.zeros((S, 0, 4, 4) if batched else (0, 4, 4), np.float32)]
+    all_kf = [np.zeros((0,), bool)]
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
-    t0 = time.perf_counter()
-    f = start_frame
-    append = args.resume and start_frame > 0
-    while f < n_frames:
-        hi = min(f + chunk, n_frames)
-        state, outs = replay_chunk(state, slice_obs(f, hi))
-        sync()
-        all_T.append(get_T(outs).cpu().numpy())
-        if get_kf is not None:
-            all_kf.append(get_kf(outs).cpu().numpy())
-        write_jsonl(log_path, stepoutput_rows(get_vo(outs), t_offset=f), append=append)
-        append = True
-        save_state(ckpt_dir, hi, state)
-        np.save(ckpt_dir / f"traj_{hi:08d}.npy", np.concatenate(all_T, axis=fax))
-        if get_kf is not None:
-            np.save(ckpt_dir / f"kf_{hi:08d}.npy", np.concatenate(all_kf))
-        if 0 <= args.fault_inject < hi:
-            print(f"[sosvo_torch] fault injection: dying after frame {hi}")
-            sys.stdout.flush()
-            os._exit(42)
-        f = hi
-    wall = time.perf_counter() - t0
+    wall = 0.0
+    if replays:
+        state = state0
+        if args.resume:
+            step = latest_step(ckpt_dir)
+            if step is not None:
+                # Every rank resumes from rank 0's checkpoint (all lanes).
+                state = restore_state(ckpt_dir, step, state0)
+                start_frame = step
+                # The ESTIMATED trajectory up to the checkpoint, never ground
+                # truth: PGO below consumes the whole estimated trajectory.
+                all_T = [np.load(ckpt_dir / f"traj_{step:08d}.npy")]
+                kf_path = ckpt_dir / f"kf_{step:08d}.npy"
+                if kf_path.exists():  # the BA replay's actual keyframes, for PGO
+                    all_kf = [np.load(kf_path)]
+                if lead:
+                    print(f"[sosvo_torch] resumed from checkpoint at frame {step}")
+        if batched:
+            state = shard_batched_inputs(replay_mesh, state, obs_all)[0]
+
+        chunk = max(1, args.ckpt_every)
+        t0 = time.perf_counter()
+        f = start_frame
+        append = args.resume and start_frame > 0
+        while f < n_frames:
+            hi = min(f + chunk, n_frames)
+            state, outs = replay_chunk(state, slice_obs(f, hi))
+            sync()
+            T_chunk = gather_lanes(replay_mesh, get_T(outs)) if batched else get_T(outs)
+            full = gather_lanes(replay_mesh, state) if batched else state
+            if lead:  # rank 0 keeps the trajectory and writes the log and checkpoints
+                all_T.append(T_chunk.cpu().numpy())
+                if get_kf is not None:
+                    all_kf.append(get_kf(outs).cpu().numpy())
+                write_jsonl(log_path, stepoutput_rows(get_vo(outs), t_offset=f), append=append)
+                save_state(ckpt_dir, hi, full)
+                np.save(ckpt_dir / f"traj_{hi:08d}.npy", np.concatenate(all_T, axis=fax))
+                if get_kf is not None:
+                    np.save(ckpt_dir / f"kf_{hi:08d}.npy", np.concatenate(all_kf))
+            append = True
+            if 0 <= args.fault_inject < hi:
+                rank_axis.psum(torch.zeros(1, device=device))  # rank 0 has written
+                if lead:
+                    print(f"[sosvo_torch] fault injection: dying after frame {hi}")
+                sys.stdout.flush()
+                os._exit(42)
+            f = hi
+        wall = time.perf_counter() - t0
 
     # The whole estimated trajectory (checkpointed prefix + this run's
     # frames), equal to the uninterrupted run's.
-    T_est = torch.from_numpy(np.concatenate(all_T, axis=fax)).to(device)
+    T_est = torch.from_numpy(np.concatenate(all_T, axis=fax)).to(device) if lead else None
     T_vo = T_est
     n_loops, pgo_wall = 0, None
-    if args.pgo or cfg.pose_graph:
+    if pgo and not batched and (lead or in_pgo):
         t_pgo0 = time.perf_counter()
         kw = dict(min_inliers=cfg.loop_min_inliers, max_candidates=cfg.loop_candidates or None,
                   robust=cfg.pgo_robust, robust_delta=cfg.pgo_robust_delta)
-        if args.mode == "ba":
-            # The replay's actual keyframe set, when the flags cover every frame.
-            kf_flags = np.concatenate(all_kf)
-            kf_idx = np.nonzero(kf_flags)[0]
-            if len(kf_flags) == n_frames and len(kf_idx) >= 2:
-                kw["kf_idx"] = kf_idx
-        T_est, n_loops = pgo_refine_trajectory(rig, cfg, obs, T_est, **kw)
+        kf_idx = None
+        if lead:
+            kf_idx = keyframe_indices(n_frames, cfg.keyframe_every)
+            if args.mode == "ba":
+                # The replay's actual keyframe set, when the flags cover every frame.
+                kf_flags = np.concatenate(all_kf)
+                if len(kf_flags) == n_frames and kf_flags.sum() >= 2:
+                    kf_idx = np.nonzero(kf_flags)[0]
+        if cfg.dist.pgo_shards > 1:
+            # Rank 0 replayed; the keyframes' observations and the trajectory
+            # go to every rank of the leg, which then runs sharded.
+            ax = pgo_mesh.axis(dmesh.DATA_AXIS)
+            sent = None
+            if lead:
+                kf = torch.as_tensor(kf_idx, dtype=torch.int64).to(device)
+                sent = [T_est, kf, *(x[kf] for x in obs)]
+            T_in, kf, *obs_kf = ax.broadcast_list(sent, device)
+            T_est, n_loops = refine_keyframes_sharded(pgo_mesh, rig, cfg,
+                                                      FrameObservations(*obs_kf), T_in,
+                                                      kf.cpu().numpy(), **kw)
+        else:
+            T_est, n_loops = pgo_refine_trajectory(rig, cfg, obs, T_est, kf_idx=kf_idx, **kw)
         n_loops = int(n_loops)
         sync()
         pgo_wall = time.perf_counter() - t_pgo0
+    if not lead:
+        dmesh.shutdown()
+        return 0
 
     def ate(est, ref):
         return float(ate_rmse(est[1:, :3, 3], ref[1:, :3, 3])[0])
@@ -274,25 +358,40 @@ def main(argv=None) -> int:
         "ate_rmse_m": round(rmse, 6),
         "rpe_t_m": round(t_rpe, 6),
         "rpe_r_rad": round(r_rpe, 6),
-        "frames_per_s": round(done * S / wall, 2),
+        "frames_per_s": round(done * S / wall, 2) if wall else 0.0,
         "wall_s": round(wall, 2),
         "mode": f"batched-{args.mode}" if batched else args.mode,
         "pgo_loops": n_loops,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "world": ranks.world,
     }
     if n_loops:
         report["ate_rmse_vo_m"] = round(ate(T_vo, gt), 6)
         report["pgo_wall_s"] = round(pgo_wall, 2)
+        if cfg.dist.pgo_shards > 1:
+            report["pgo_shards"] = shards
     if extract_wall is not None:
         report["extract_wall_s"] = round(extract_wall, 2)
     if batched:
         report["n_sequences"] = S
-        report["mesh"] = {"data": 1}  # every lane on the one device
+        report["mesh"] = {"data": dp}
         report["ate_per_sequence"] = [round(a, 6) for a in ates]
+    if sharded_replay:
+        report["mesh"] = {"model": mp}
+        if args.verify_sharded:
+            # The same inputs and draws replayed on one device: the sharded
+            # (all-reduced) solves must reproduce it to f32 tolerance.
+            s1 = init_ba_state(cfg, torch.Generator(device=device).manual_seed(SEED + 2),
+                               T0=gt[0], device=device)
+            _, outs_1 = run_replay_ba(rig, cfg, s1, obs)
+            sync()
+            report["sharded_vs_single_max_pose_diff"] = float(
+                torch.max(torch.abs(T_vo - outs_1.vo.T_world)))
+            report["ate_rmse_single_device"] = round(ate(outs_1.vo.T_world, gt), 6)
     (out / "report.json").write_text(json.dumps(report, indent=2))
     print(json.dumps(report))
+    dmesh.shutdown()
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

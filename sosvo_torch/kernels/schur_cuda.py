@@ -17,6 +17,14 @@ scratch kept per (device, stream). `schedule` is the kernel's work split
 (clusters, tile size and landmark groups per CTA for the cluster shape the
 card schedules), shared with the tests' emulation of its summation order.
 
+The shard-partial form (config c5, `reduce_camera_system_pallas(axis_name=
+...)`): with `axis`, `reduce_camera_system_cuda` launches the same kernel
+on this rank's landmark shard, sums its S_off and b_sub over the axis (one
+all-reduce of the (6W)^2 + 6W floats), and assembles S and b_red from the
+global, already-damped H_cc and b_c; still one launch per call. The LM
+step (`backend/ba.py:lm_step`) takes the same route through `schur_parts`,
+with H_cc, b_c and the gauge coupling in the same all-reduce.
+
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise); CPU tensors run the plain version, `inv3x3` followed by
 `sosvo_torch.backend.schur.reduce_camera_system`. There is no fallback from
@@ -195,18 +203,33 @@ def schur_reduce_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc: bool = True) -
     return parts
 
 
-def reduce_camera_system_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc: bool = True):
+def schur_parts(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc: bool = True) -> SchurParts:
+    """The Schur reduction's parts, by the tensors' device: CUDA tensors
+    launch the kernel, CPU tensors run the plain version."""
+    if H_cl.device.type == "cuda":
+        return schur_reduce_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc)
+    if H_cl.device.type == "cpu":
+        return schur_reduce_plain(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc)
+    raise ValueError(f"schur_parts: no Schur reduction for device {H_cl.device}")
+
+
+def reduce_camera_system_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc: bool = True,
+                              axis=None):
     """Fused Schur reduction with `reduce_camera_system_pallas`'s contract:
     (S (W, W, 6, 6), b_red (W, 6), H_ll_inv (L, 3, 3)).
 
     `damp_H_cc=False` when the caller already damped H_cc (the LM step
     does); lam then only damps the landmark blocks. CUDA tensors go through
-    the kernel, CPU tensors through the plain version.
+    the kernel, CPU tensors through the plain version. With `axis`
+    (landmark sharding) H_cl, H_ll and b_l are this rank's shard, H_cc and
+    b_c are global: the shard's S_off and b_sub are summed over the axis
+    before S and b_red are assembled.
     """
-    if H_cl.device.type == "cuda":
-        parts = schur_reduce_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc)
-    elif H_cl.device.type == "cpu":
-        parts = schur_reduce_plain(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc)
-    else:
-        raise ValueError(f"reduce_camera_system_cuda: no Schur reduction for device {H_cl.device}")
-    return parts.S, parts.b_red, parts.H_ll_inv
+    parts = schur_parts(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc)
+    if axis is None:
+        return parts.S, parts.b_red, parts.H_ll_inv
+    S_off, b_sub = axis.psum(parts.S_off, parts.b_sub)
+    if damp_H_cc:
+        H_cc = H_cc + lam * torch.eye(6, dtype=H_cc.dtype, device=H_cc.device)[None]
+    S, b_red = assemble_camera_system(H_cc, b_c, S_off, b_sub)
+    return S, b_red, parts.H_ll_inv

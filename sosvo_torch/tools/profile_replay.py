@@ -59,8 +59,12 @@ frame (K=512) and of a frame at c3's sizes (K=2048), and the map
 associations L x K at 512x512 (c2), 1024x2048 (c3 sizes) and 4096x1024
 (c5) on random descriptors with 40 planted matches, and c3's loop pair
 (the stereo features of frames 0 and 100 at c3's sizes, 2048x2048, no
-band); Schur: random SPD windows at W5/L512 (c2), W5/L1024 (c3 sizes),
-W8/L4096 (c5) and W2/L2048 (c3's two-frame loop window). The worker
+band), c5's stereo and temporal matches (K=1024, every rank's frame), c4
+lane 0's frame-0 stereo match (K=512), and c2 as written in image mode
+(frames 0 and 30 rendered and extracted on the card: stereo, temporal);
+Schur: random SPD windows at W5/L512 (c2, and every c4 lane's window),
+W5/L1024 (c3 sizes), W8/L4096 (c5 on one device), W2/L2048 (c3's two-frame
+loop window) and W8/L512 (one of c5's 8 landmark shards). The worker
 uses only entry points that every tree of the port has. Then, in this
 process: the library yardstick of each shape (one torch.matmul of the same
 product, which the port never calls), the launch floors (probes with no
@@ -350,7 +354,8 @@ import torch
 from sosvo_torch.kernels.match_cuda import match_stats_cuda
 from sosvo_torch.kernels.schur_cuda import schur_reduce_cuda
 from sosvo_torch.tools.profile_replay import _device_us_per_call
-from sosvo_torch.tools.workload import cuda_ms, load_preset, make_workload
+from sosvo_torch.tools.workload import (cuda_ms, load_image_preset, load_preset,
+                                        make_batched_workload, make_image_workload, make_workload)
 from sosvo_torch.vo.pipeline import azimuth_of, stereo_triangulate
 
 tree = sys.argv[1]
@@ -388,7 +393,35 @@ for ka, kb in ((512, 512), (1024, 2048), (4096, 1024)):
     va = torch.rand(ka, generator=gen, device=dev) < 0.9
     vb = torch.rand(kb, generator=gen, device=dev) < 0.9
     report("matcher", f"association_{ka}x{kb}", lambda: match_stats_cuda(da, db, va, vb))
-for W, L in ((5, 512), (5, 1024), (8, 4096), (2, 2048)):
+# c5: every rank's stereo and temporal match at K=1024
+cfg, run = load_preset("c5_multihost")
+rig, _, obs = make_workload(cfg, 2, run["n_landmarks"], dev)
+f0, f1 = obs.frame(0), obs.frame(1)
+v0, v1 = stereo_triangulate(rig, f0, cfg)[4], stereo_triangulate(rig, f1, cfg)[4]
+st5 = (f0.desc_top, f0.desc_bottom, f0.valid_top, f0.valid_bottom, azimuth_of(f0.ray_top),
+       azimuth_of(f0.ray_bottom))
+report("matcher", "c5_1024_stereo", lambda: match_stats_cuda(*st5, band=cfg.frontend.stereo_band_rad))
+report("matcher", "c5_1024_temporal", lambda: match_stats_cuda(f0.desc_top, f1.desc_top, v0, v1))
+# c4 lane 0's frame-0 stereo match (K=512)
+cfg, run = load_preset("c4_batched_replay")
+rig, _, obs = make_batched_workload(cfg, 1, 1, run["n_landmarks"], dev)
+f0 = type(obs)(*(x[0, 0] for x in obs))
+st4 = (f0.desc_top, f0.desc_bottom, f0.valid_top, f0.valid_bottom, azimuth_of(f0.ray_top),
+       azimuth_of(f0.ray_bottom))
+report("matcher", "c4_lane0_512_stereo",
+       lambda: match_stats_cuda(*st4, band=cfg.frontend.stereo_band_rad))
+# c2 as written, image mode: frames 0 and 30, extracted on the card
+cfg, run = load_image_preset("c2_chip_ba")
+rig, _, _, _, obs = make_image_workload(cfg, 31, dev, keep_images=False)
+f0, f30 = obs.frame(0), obs.frame(30)
+v0, v30 = stereo_triangulate(rig, f0, cfg)[4], stereo_triangulate(rig, f30, cfg)[4]
+sti = (f0.desc_top, f0.desc_bottom, f0.valid_top, f0.valid_bottom, azimuth_of(f0.ray_top),
+       azimuth_of(f0.ray_bottom))
+report("matcher", "c2_image_512_stereo",
+       lambda: match_stats_cuda(*sti, band=cfg.frontend.stereo_band_rad))
+report("matcher", "c2_image_512_temporal_0_30",
+       lambda: match_stats_cuda(f0.desc_top, f30.desc_top, v0, v30))
+for W, L in ((5, 512), (5, 1024), (8, 4096), (2, 2048), (8, 512)):
     J = torch.randn((L, 6, 3), generator=gen, device=dev)
     H_ll = torch.einsum("lri,lrj->lij", J, J) + torch.eye(3, device=dev)
     G = torch.randn((W, 8, 6), generator=gen, device=dev)
@@ -399,8 +432,10 @@ for W, L in ((5, 512), (5, 1024), (8, 4096), (2, 2048)):
     report("schur", f"W{W}_L{L}", lambda: schur_reduce_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam))
 """
 
-MATCHER_SHAPES = ((512, 512), (1024, 2048), (2048, 2048), (4096, 1024))  # the main path's ka x kb
-SCHUR_SHAPES = ((5, 512), (5, 1024), (8, 4096), (2, 2048))  # W, L; W2/L2048: c3's loop window
+# the main path's ka x kb; 1024x1024: every c5 rank's frame
+MATCHER_SHAPES = ((512, 512), (1024, 2048), (2048, 2048), (4096, 1024), (1024, 1024))
+# W, L; W2/L2048: c3's loop window; W8/L512: one of c5's 8 landmark shards
+SCHUR_SHAPES = ((5, 512), (5, 1024), (8, 4096), (2, 2048), (8, 512))
 
 
 def library_yardsticks(device) -> None:

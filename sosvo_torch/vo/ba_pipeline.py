@@ -145,11 +145,12 @@ def keyframe_stage(rig: OmnistereoRig, cfg: PipelineConfig, m: MapState, track: 
 
 def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track: TrackState,
                  out: StepOutput, feats: KeyframeFeatures, frame: int, n_kf: int,
-                 draws: StepDraws | None = None) -> tuple[BAState, BAStepOutput, int]:
+                 draws: StepDraws | None = None, ba_fn=None) -> tuple[BAState, BAStepOutput, int]:
     """Relocalisation, keyframe and window-BA stage of a frame whose
     frame-to-frame step is done. `frame` (the index of that frame) and
-    `n_kf` (keyframes inserted before it) are the host's counters; returns
-    the new state, the frame's output, and the new keyframe count."""
+    `n_kf` (keyframes inserted before it) are the host's counters; `ba_fn`
+    (MapState -> (MapState, cost)) replaces the window solve. Returns the
+    new state, the frame's output, and the new keyframe count."""
     device = track.T_world.device
     tried = False
     # The host reads pose_ok once the map can relocalise.
@@ -164,7 +165,7 @@ def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track:
     else:
         is_kf = frame % cfg.keyframe_every == 0
 
-    m, T_w, cost = keyframe_stage(rig, cfg, state.map, track, feats, is_kf, n_kf)
+    m, T_w, cost = keyframe_stage(rig, cfg, state.map, track, feats, is_kf, n_kf, ba_fn=ba_fn)
     track = track._replace(T_world=T_w)
     out2 = BAStepOutput(
         vo=out._replace(T_world=T_w),
@@ -177,22 +178,25 @@ def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track:
 
 
 def step_ba(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, obs: FrameObservations,
-            frame: int, n_kf: int, draws: StepDraws | None = None
+            frame: int, n_kf: int, draws: StepDraws | None = None, ba_fn=None
             ) -> tuple[BAState, BAStepOutput, int]:
     """One frame with keyframe/BA logic: (new state, output, keyframe count)."""
     track, out, feats = step_full(rig, cfg, state.track, obs, draws)
-    return step_ba_post(rig, cfg, state, track, out, feats, frame, n_kf, draws)
+    return step_ba_post(rig, cfg, state, track, out, feats, frame, n_kf, draws, ba_fn)
 
 
 def run_replay_ba(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState,
-                  obs_seq: FrameObservations, draws: StepDraws | None = None
+                  obs_seq: FrameObservations, draws: StepDraws | None = None, ba_fn=None
                   ) -> tuple[BAState, BAStepOutput]:
-    """Replay with windowed BA; outputs are stacked per frame."""
+    """Replay with windowed BA; outputs are stacked per frame. `ba_fn`
+    (MapState -> (MapState, cost)) replaces every window solve, as the JAX
+    package's `ba_fn` does (the landmark-sharded solve of
+    `sosvo_torch/dist/replay_dist.py` is one)."""
     frame0, n_kf = torch.stack([state.track.frame_idx, state.map.n_kf]).tolist()  # one read
     outs = []
     for f in range(obs_seq.desc_top.shape[0]):
         d = None if draws is None else draws.frame(f)
-        state, out, n_kf = step_ba(rig, cfg, state, obs_seq.frame(f), frame0 + f, n_kf, d)
+        state, out, n_kf = step_ba(rig, cfg, state, obs_seq.frame(f), frame0 + f, n_kf, d, ba_fn)
         outs.append(out)
     vo = StepOutput(*(torch.stack(x) for x in zip(*(o.vo for o in outs))))
     rest = (torch.stack(x) for x in list(zip(*outs))[1:])

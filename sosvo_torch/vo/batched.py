@@ -13,7 +13,9 @@ every lane's gate predicate, and in BA mode one read of every lane's
 window warm-up (two keyframes) follow from host counters. Adaptive
 keyframing is per lane by nature and is not supported: the BA replay uses
 the stride schedule whatever `cfg.keyframe_mode` says, as the reference
-does. `shard_batched_inputs` waits for distribution (c5).
+does. Over ranks, `shard_batched_inputs` gives each rank of a mesh's data
+axis its contiguous block of lanes (their states, generators included, and
+observations) and `gather_lanes` puts the blocks back together.
 
 A lane draws from its own generator exactly what its sequential replay
 draws, in the same order (rigid, essential when its gate runs,
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from sosvo_torch.dist.mesh import DATA_AXIS, Mesh
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
 from sosvo_torch.utils.config import PipelineConfig
@@ -67,6 +70,58 @@ def init_batched_ba_states(n_seq: int, cfg: PipelineConfig, seed: int,
     T0s = _T0s(n_seq, T0, device)
     return stack_lanes([init_ba_state(cfg, g, T0=T0s[s], device=device)
                         for s, g in enumerate(gens)])
+
+
+def lane_block(tree, lo: int, hi: int):
+    """Lanes [lo, hi) of a batched tree (views; generators as a tuple)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[lo:hi]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(lane_block(x, lo, hi) for x in tree))
+    if isinstance(tree, tuple):
+        return tree[lo:hi]
+    return tree
+
+
+def shard_batched_inputs(mesh: Mesh, states, obs_seqs: FrameObservations):
+    """This rank's contiguous block of lanes of `states` and `obs_seqs` (the
+    JAX package's sequence axis on the "data" mesh axis): S lanes over a
+    data axis of size D, S divisible by D. Each lane keeps its own
+    generator, so it replays as in the one-process batched replay."""
+    axis = mesh.axis(DATA_AXIS)
+    S = obs_seqs.desc_top.shape[0]
+    if S % axis.size:
+        raise ValueError(f"{S} sequences do not divide over {axis.size} ranks")
+    n = S // axis.size
+    lo = axis.index * n
+    return lane_block(states, lo, lo + n), lane_block(obs_seqs, lo, lo + n)
+
+
+def gather_lanes(mesh: Mesh, tree):
+    """The inverse of `shard_batched_inputs` on every rank: every lane of a
+    batched tree, each generator rebuilt from its rank's state (the lanes'
+    own generators on this rank)."""
+    axis = mesh.axis(DATA_AXIS)
+    if axis.size == 1:
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return axis.all_gather(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(gather_lanes(mesh, x) for x in tree))
+    if isinstance(tree, tuple):  # the lanes' generators
+        dev = mesh.device
+        mine = torch.stack([g.get_state() for g in tree]).to(dev, torch.int32)
+        states = axis.all_gather(mine).to("cpu", torch.uint8)
+        n = len(tree)
+        gens = []
+        for s, st in enumerate(states):
+            if s // n == axis.index:
+                gens.append(tree[s % n])
+            else:
+                gens.append(torch.Generator(device=tree[0].device))
+                gens[-1].set_state(st.clone())  # set_state reads the storage from its start
+        return tuple(gens)
+    return tree
 
 
 def _frame_draws(draws: StepDraws | None, s: int, f: int) -> StepDraws | None:

@@ -159,10 +159,30 @@ def window_anchor(m: MapState) -> torch.Tensor:
 
 
 def run_window_ba(rig: OmnistereoRig, m: MapState, iters: int = 5,
-                  huber_delta: float | None = 0.01) -> tuple[MapState, torch.Tensor]:
-    """Refine the window with robust BA; returns (updated map, BA cost)."""
+                  huber_delta: float | None = 0.01, axis=None) -> tuple[MapState, torch.Tensor]:
+    """Refine the window with robust BA; returns (updated map, BA cost).
+
+    With `axis` (a `sosvo_torch.dist.mesh.Axis` of size D, landmark
+    sharding) rank i solves the map's landmark block [i L/D, (i+1) L/D) and
+    the refined landmarks are gathered back, so the map stays replicated;
+    L must divide by D."""
     vps = torch.stack([viewpoint(rig.top), viewpoint(rig.bottom)])
     win = BAWindow(X=m.kf_X, landmarks=m.lm_pos, rays=m.obs_rays, weights=m.obs_w,
                    viewpoints=vps)
-    res = ba_solve(win, iters=iters, anchor=window_anchor(m), huber_delta=huber_delta)
-    return m._replace(kf_X=res.X, lm_pos=res.landmarks), res.cost
+    if axis is not None:
+        win = landmark_shard(win, axis)
+    res = ba_solve(win, iters=iters, anchor=window_anchor(m), huber_delta=huber_delta, axis=axis)
+    lm = res.landmarks if axis is None else axis.all_gather(res.landmarks)
+    return m._replace(kf_X=res.X, lm_pos=lm), res.cost
+
+
+def landmark_shard(win: BAWindow, axis) -> BAWindow:
+    """This rank's contiguous block of the window's landmarks (views): the
+    layout of the JAX package's `P("model")` on the landmark axis."""
+    L = win.landmarks.shape[0]
+    if L % axis.size:
+        raise ValueError(f"{L} landmark slots do not divide over {axis.size} shards")
+    n = L // axis.size
+    lo = axis.index * n
+    return win._replace(landmarks=win.landmarks[lo:lo + n], rays=win.rays[:, lo:lo + n],
+                        weights=win.weights[:, lo:lo + n])

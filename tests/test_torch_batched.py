@@ -257,3 +257,32 @@ def test_apply_deferred_gate_matches_jax(problem):
                                rtol=1e-3, atol=1e-3)
     np.testing.assert_array_equal(got_state.T_world.numpy(), np.asarray(ref_state.T_world))
     np.testing.assert_array_equal(got_out.T_world[0].numpy(), np.asarray(states.T_world[0]))
+
+
+def test_ba_fn_hook_in_both_replays(problem):
+    """The sequential replay takes the batched replay's `ba_fn` too: a solve
+    that returns its map with cost 0 leaves every BA cost 0 and the map as
+    inserted, in the sequential replay of lane 0 and in the batched replay,
+    and lane 0 comes out the same from both."""
+    tcfg = _port_cfg(BA_CFG)
+    solved = {"seq": [], "batched": []}
+
+    def hook(name):
+        def ba_fn(m):
+            solved[name].append(m)
+            return m, torch.zeros(())
+        return ba_fn
+
+    obs = FrameObservations(*(x[:, :7] for x in problem["t_obs"]))
+    gen = tb.lane_generators(STATE_SEED, S, "cpu")[0]
+    st = init_ba_state(tcfg, gen, T0=problem["t_T0"][0], device="cpu")
+    final_1, out_1 = run_replay_ba(problem["t_rig"], tcfg, st, lane(obs, 0), ba_fn=hook("seq"))
+    states = tb.init_batched_ba_states(S, tcfg, STATE_SEED, T0=problem["t_T0"], device="cpu")
+    final_s, out_s = tb.run_replay_ba_batched(problem["t_rig"], tcfg, states, obs,
+                                              ba_fn=hook("batched"))
+    assert len(solved["seq"]) == 2 and len(solved["batched"]) == 2 * S  # keyframes 3 and 6
+    assert not bool(out_1.ba_cost.any()) and not bool(out_s.ba_cost.any())
+    for got, m in ((final_1.map, solved["seq"][-1]), (lane(final_s.map, 0), solved["batched"][-S])):
+        assert all(torch.equal(a, b) for a, b in zip(got, m))
+    assert torch.equal(out_1.vo.T_world, out_s.vo.T_world[0])
+    assert torch.equal(out_1.is_keyframe, out_s.is_keyframe[0])

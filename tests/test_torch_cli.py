@@ -7,6 +7,7 @@ part of the state). The command line runs at the reference test's tiny
 sizes (K=128, H=128): a killed run resumed writes the uninterrupted run's
 `frames.jsonl` byte for byte, with PGO its report's loops and ATE, and the
 batched branch runs in both modes. Options that are not ported raise.
+The command line over several ranks: tests/test_torch_dist_cli.py.
 """
 
 import json
@@ -175,19 +176,20 @@ NOT_BATCHED = (ValueError, "non-batched only")
 
 @pytest.mark.parametrize("extra, pipeline, error", [
     (["--sequence", "capture.npz"], {}, NOT_PORTED), (["--rig", "rig.json"], {}, NOT_PORTED),
-    (["--viz"], {}, NOT_PORTED), (["--verify-sharded"], {}, NOT_PORTED),
-    ([], {"dist": {"model_parallel": 2}}, NOT_PORTED),
-    ([], {"dist": {"pgo_shards": 2}}, NOT_PORTED),
+    (["--viz"], {}, NOT_PORTED),
     (["--pgo"], {"dist": {"data_parallel": 2}}, NOT_BATCHED),
     ([], {"dist": {"data_parallel": 2}, "pose_graph": True}, NOT_BATCHED),
-    (["--source", "images"], {"dist": {"data_parallel": 2}}, (ValueError, "observation-mode"))],
-    ids=["sequence", "rig", "viz", "verify_sharded", "model_parallel", "pgo_shards",
-         "batched_pgo", "batched_pose_graph", "batched_images"])
+    (["--source", "images"], {"dist": {"data_parallel": 2}}, (ValueError, "observation-mode")),
+    (["--verify-sharded"], {}, (ValueError, "model_parallel > 1"))],
+    ids=["sequence", "rig", "viz", "batched_pgo", "batched_pose_graph", "batched_images",
+         "verify_unsharded"])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, pipeline, error):
     """An option or setting the port does not run raises before anything
-    runs: what is not ported yet names its ROADMAP item, and PGO or the
-    image source with the batched replay are refused, as the batched branch
-    runs neither. None is ignored."""
+    runs: what is not ported yet names its ROADMAP item, PGO or the image
+    source with the batched replay are refused, as the batched branch runs
+    neither, and --verify-sharded without a model-sharded BA replay has
+    nothing to check. None is ignored. (The model-sharded replay,
+    --verify-sharded and sharded loop closing run: tests/test_torch_dist_cli.py.)"""
     cfg = json.loads(Path(_tiny_cfg(tmp_path)).read_text())
     cfg["pipeline"].update(pipeline)
     p = tmp_path / "c.json"

@@ -20,7 +20,10 @@ assert {"sosvo_torch.backend.pose_graph", "sosvo_torch.vo.loop_closure",
         "sosvo_torch.frontend.descriptor", "sosvo_torch.frontend.image_frontend",
         "sosvo_torch.vo.image_pipeline", "sosvo_torch.tools.frontend_parity",
         "sosvo_torch.vo.batched", "sosvo_torch.utils.framelog", "sosvo_torch.utils.checkpoint",
-        "sosvo_torch.cli"} <= set(names), names
+        "sosvo_torch.cli", "sosvo_torch.dist.mesh", "sosvo_torch.dist.launch",
+        "sosvo_torch.dist.ba_dist", "sosvo_torch.dist.replay_dist", "sosvo_torch.dist.pgo_time",
+        "sosvo_torch.dist.loops_dist", "sosvo_torch.dist.c3_dist", "sosvo_torch.dist.scaling",
+        "sosvo_torch.dist.dryrun"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "sosvo" or m.startswith("sosvo.")
@@ -34,5 +37,5 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # every module was walked, the loop-closure, image and batched slices' too
-    assert int(out.stdout.strip()) >= 56
+    # every module was walked, the loop-closure, image, batched and dist slices' too
+    assert int(out.stdout.strip()) >= 66
