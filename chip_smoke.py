@@ -97,6 +97,40 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      and 1e-4); frames/s summed over the lanes; then both kernels at c4's
      shapes against their plain versions (lane 0's stereo match, its map
      association and its last window);
+ 14. the SIFT and AKAZE descriptor options (scripts/ref_descriptor_ate.py
+     holds the JAX package's figures for the same presets):
+     14a. each extractor at c2's width (K=512, 128x1024 panoramas) on the
+          card against the port on the CPU, on frames 0 and 30 and the same
+          LUT values: slots equal but for near-ties (counted), on equal
+          slots validity, uv (1e-3 px) and rays (1e-6); AKAZE's M-LDB words
+          (descriptors with a word apart counted, at most 1 %); SIFT's
+          float descriptors within 1e-6 but for at most 1 % of them (a
+          sample across an orientation-bin edge: the devices' `atan2`
+          differ in the last bit), none 0.05 or more apart in L2; each
+          extractor's host ms, device ms and device events per frame;
+     14b. the Hamming kernel on frame 0's AKAZE descriptors, stereo in
+          c2's band and temporal to frame 30: all four statistics equal
+          the plain version (max_abs_err 0.0), both timed;
+     14c. c2 as written with descriptor="akaze", window BA, the command
+          line's draws (as 7b): pose_ok 59/59, 15 keyframes, 70 Schur and
+          2 x 60 + 15 + relocalisations matcher launches, ATE at most the
+          JAX package's worst plus twice the spread over seeds 0-2 and
+          over seed 0 on the sequence rendered 0.1 and 0.3 um shifted
+          (scripts/ref_descriptor_ate.py: the ATE moves with the render's
+          rounding at checker edges, and the card's render rounds apart
+          from the CPU's);
+     14d. the same with descriptor="sift": its L2 matches are plain torch,
+          so no matcher launch, 70 Schur launches, the same ATE rule; then
+          the command line on a copy of the preset with "descriptor":
+          "sift" (BA, a checkpoint every 16 frames), killed after frame 20
+          and resumed: frames.jsonl byte for byte the uninterrupted run's;
+     14e. c3 as written (configs/c3_host_pgo.json: K=2048, 200 frames) with
+          descriptor="sift": the BA replay under the JAX package's limit
+          (as 14c), then
+          its loop leg (160 candidates; L2 loop-edge matches, float
+          signatures) with the reference's pair draws: no matcher and 640
+          Schur launches, a loop closed (the JAX package's rows close
+          9-11), and ATE after the leg under its limit (as 14c);
  12. c5 as written (configs/c5_multihost.json: 100 frames, K=1024, H=512,
      W=8, L=4096, 32768 scene landmarks) over 8 ranks on the one card
      (`sosvo_torch/dist/launch.py`, gloo: NCCL takes one rank per card),
@@ -144,13 +178,17 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
 Each replay and each loop-closure leg resets the launch counts just before
 it and reads them just after (in each rank, for the ranks' paths); the
 kernels line's `launches` are those of phase 7c (c3 image-native: its BA
-replay plus its loop leg), phase 10 (c4 in both modes), phase 12 and phase
-13's sharded leg (summed over the ranks), `launches_by_path` every path's.
-Each phase's wall time is printed. `python3 chip_smoke.py --dist-only`
-runs the build and phases 12 (with 12b), 13 and 11's torchrun runs alone, and
-prints no result line. Then it counts each
-kernel's device events per call (profiler; 1 each: one launch, no fills or
-copies), prints the card's name and power limit, one JSON line describing
+replay plus its loop leg), phase 10 (c4 in both modes), phase 12, phase
+13's sharded leg (summed over the ranks) and phase 14's replays and leg,
+`launches_by_path` every path's. Each phase's wall time is printed.
+`python3 chip_smoke.py --dist-only` runs the build and phases 12 (with
+12b), 13 and 11's torchrun runs alone, `--descriptors-only` the build and
+phase 14 alone; neither prints a result line. After phase 10, before
+phase 14, it counts each kernel's device events per call (profiler; 1
+each: one launch, no fills or copies): every profiler session runs before
+the phases that start processes of their own on the card (12, 13, 11).
+The phases run in the order 1-10, 14, 12, 13, 11. At the end it prints
+the card's name and power limit, one JSON line describing
 each kernel (with its route: the matcher's b1 tensor-core product, the
 Schur kernel's cluster size), and as the last line
 {"ok": true, "device": {...}}.
@@ -371,8 +409,8 @@ def ba_replay_phase(label: str, cfg, n_frames: int, n_landmarks: int, max_ate: f
     check(n_ok == n_frames - 1, f"{label}: pose_ok on {n_ok}/{n_frames - 1} frames")
     check(n_kf == want_kf, f"{label}: {n_kf} keyframes, expected {want_kf}")
     check(s_launches == want_schur, f"{label}: {s_launches} Schur launches, expected {want_schur}")
-    check(m_launches == 2 * n_frames + n_kf + n_reloc,
-          f"{label}: {m_launches} matcher launches, expected {2 * n_frames} + {n_kf} + {n_reloc}")
+    want_m = 0 if _l2(cfg) else 2 * n_frames + n_kf + n_reloc  # L2 (SIFT): no kernel
+    check(m_launches == want_m, f"{label}: {m_launches} matcher launches, expected {want_m}")
     check(n_lm == cfg.ba.max_landmarks, f"{label}: map holds {n_lm}/{cfg.ba.max_landmarks}")
     check(rmse < max_ate, f"{label}: ATE {rmse} m >= {max_ate} m")
     f2f = ""
@@ -437,8 +475,8 @@ def ba_dropout_phase(cfg, n_landmarks: int, device) -> tuple[int, int]:
     check(rmse < 0.05, f"{label}: ATE after the dropout {rmse} m >= 0.05 m")
     check(s_launches == (n_kf - 1) * cfg.ba.iters,
           f"{label}: {s_launches} Schur launches, expected {(n_kf - 1) * cfg.ba.iters}")
-    check(m_launches == 2 * n_frames + n_kf + n_reloc,
-          f"{label}: {m_launches} matcher launches, expected {2 * n_frames} + {n_kf} + {n_reloc}")
+    want_m = 0 if _l2(cfg) else 2 * n_frames + n_kf + n_reloc  # L2 (SIFT): no kernel
+    check(m_launches == want_m, f"{label}: {m_launches} matcher launches, expected {want_m}")
     print(f"replay {label}: K={cfg.frontend.max_features} H={cfg.ransac.n_hyps} W={cfg.ba.window} "
           f"L={cfg.ba.max_landmarks} frames={n_frames} dead_descriptors=frames "
           f"{drop.start}-{drop.stop - 1} relocalisations={n_reloc} on frames "
@@ -463,7 +501,8 @@ def pgo_phase(label: str, cfg, rig, gt_poses, obs, T_world, kf_idx, ref_ate: flo
     """c3's loop-closure leg over one replayed trajectory, as sosvo/cli.py
     runs it after a c3 replay (`tools/workload.py:pgo_leg`). Checks the
     launch counts (one matcher launch per keyframe's stereo match and per
-    candidate pair, four Schur launches per pair's two-frame BA), finite
+    candidate pair, none with SIFT's L2 matcher; four Schur launches per
+    pair's two-frame BA), finite
     poses, at least one loop, a solve that lowered the cost with at least
     one step accepted, the ATE against the JAX reference's `ref_ate` plus
     `margin`, and, with `must_drop`, below the ATE before. `gumbels`: the
@@ -477,6 +516,7 @@ def pgo_phase(label: str, cfg, rig, gt_poses, obs, T_world, kf_idx, ref_ate: flo
 
     n_kf = len(kf_idx)
     n_pairs = cfg.loop_candidates or len(loop_pairs(n_kf, 3)[0])
+    want_m = 0 if _l2(cfg) else n_kf + n_pairs  # SIFT's L2 matches launch no kernel
     torch.cuda.synchronize()
     match_cuda.reset_launches()
     schur_cuda.reset_launches()
@@ -490,8 +530,7 @@ def pgo_phase(label: str, cfg, rig, gt_poses, obs, T_world, kf_idx, ref_ate: flo
     after = float(ate_rmse(leg.T_corrected[1:, :3, 3], gt)[0])
     n_loops = int(leg.n_loops)
     limit = ref_ate + margin
-    check(m_launches == n_kf + n_pairs,
-          f"{label}: {m_launches} matcher launches, expected {n_kf} + {n_pairs}")
+    check(m_launches == want_m, f"{label}: {m_launches} matcher launches, expected {want_m}")
     check(s_launches == 4 * n_pairs, f"{label}: {s_launches} Schur launches, expected 4 x {n_pairs}")
     check(bool(torch.isfinite(leg.T_corrected).all()), f"{label}: non-finite pose")
     check(n_loops >= 1, f"{label}: no loop closed")
@@ -802,7 +841,43 @@ def launch_counts(gen, device, blocks) -> None:
 # largest spread between seeds.
 IMAGE_REF_ATE_M = {"c2_ba": (0.007460933178663254, 0.007471336517482996, 0.00739532383158803),
                    "c3_ba": (0.028098905459046364, 0.028617585077881813, 0.030325645580887794),
-                   "c3_pgo": (0.01806194894015789, 0.01909755729138851, 0.01914658211171627)}
+                   "c3_pgo": (0.01806194894015789, 0.01909755729138851, 0.01914658211171627),
+                   # the same presets with frontend.descriptor replaced
+                   # (scripts/ref_descriptor_ate.py): seeds 0-2, then seed 0
+                   # on the sequence rendered with every pose shifted by
+                   # +0.1, -0.1, +0.3 and -0.3 um along x. The ATE moves
+                   # with the render's rounding at the checker edges far
+                   # more than with the RANSAC seed, and the card's render
+                   # rounds apart from the CPU's (PERF.md §6).
+                   "c2_akaze_ba": (0.017416533082723618, 0.017600806429982185,
+                                   0.018150372430682182, 0.014520280994474888,
+                                   0.015394707210361958, 0.014667447656393051,
+                                   0.019250430166721344),
+                   "c2_sift_ba": (0.02233959175646305, 0.02232171967625618, 0.022374222055077553,
+                                  0.0223611518740654, 0.02253340184688568, 0.02225263975560665,
+                                  0.022539611905813217),
+                   "c3_sift_ba": (0.021464167162775993, 0.021248359233140945,
+                                  0.021415308117866516, 0.021393900737166405, 0.01979329250752926,
+                                  0.019288048148155212, 0.02246752195060253),
+                   "c3_sift_pgo": (0.01146115642040968, 0.011048964224755764, 0.01115184836089611,
+                                   0.010822121985256672, 0.010546239092946053,
+                                   0.011040992103517056, 0.010637504048645496)}
+C3_SIFT_REF_LOOPS = (9, 11)  # n_loops of c3's SIFT leg over those rows (the same script)
+
+
+def _l2(cfg) -> bool:
+    """Whether `cfg`'s descriptors match by L2 (SIFT): plain torch, no kernel."""
+    from sosvo_torch.frontend.match import metric_params
+
+    return metric_params(cfg.frontend)[0] == "l2"
+
+
+def with_descriptor(cfg, descriptor: str):
+    """`cfg` with `frontend.descriptor` replaced."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
+                                                                 descriptor=descriptor))
 
 
 def image_ate_limit(name: str) -> tuple[float, float]:
@@ -924,8 +999,9 @@ def image_ba_phase(label: str, cfg, n_frames: int, ref_name: str, max_ate: float
     own RANSAC draws (`tools/reference_draws.py`: PRNGKey(2), made on the
     card), so the ATE compares with the JAX package's seed 0 on the same
     sequence and random stream. Checks pose_ok on every frame, the stride
-    keyframes, both kernels' launches, and the ATE against the JAX
-    package's worst seed plus twice the spread (and `max_ate` where given);
+    keyframes, both kernels' launches (no matcher launch with SIFT, whose
+    L2 matches are plain torch), and the ATE against the JAX package's
+    worst seed plus twice the spread (and `max_ate` where given);
     prints the distance to seed 0. Prints frames/s of the replay including
     extraction and the frontend's ms per frame (host clock, synchronised).
     Returns (matcher launches, Schur launches, rig, poses, observations,
@@ -961,8 +1037,8 @@ def image_ba_phase(label: str, cfg, n_frames: int, ref_name: str, max_ate: float
     check(n_kf == want_kf, f"{label}: {n_kf} keyframes, expected {want_kf}")
     check(s_launches == (want_kf - 1) * cfg.ba.iters,
           f"{label}: {s_launches} Schur launches, expected {(want_kf - 1) * cfg.ba.iters}")
-    check(m_launches == 2 * n_frames + n_kf + n_reloc,
-          f"{label}: {m_launches} matcher launches, expected {2 * n_frames} + {n_kf} + {n_reloc}")
+    want_m = 0 if _l2(cfg) else 2 * n_frames + n_kf + n_reloc  # L2 (SIFT): no kernel
+    check(m_launches == want_m, f"{label}: {m_launches} matcher launches, expected {want_m}")
     check(rmse <= ref + margin, f"{label}: ATE {rmse} m above the JAX reference {ref} + {margin}")
     if max_ate is not None:
         check(rmse < max_ate, f"{label}: ATE {rmse} m >= {max_ate} m")
@@ -975,7 +1051,8 @@ def image_ba_phase(label: str, cfg, n_frames: int, ref_name: str, max_ate: float
         extract_s.append(time.perf_counter() - t0)
     med = timed_replays(replay, timed_reps)
     fe = cfg.frontend
-    print(f"replay {label}: images {rig.image_height}x{rig.image_width} pano "
+    print(f"replay {label}: descriptor={fe.descriptor} images "
+          f"{rig.image_height}x{rig.image_width} pano "
           f"{fe.pano_height}x{fe.pano_width} K={fe.max_features} H={cfg.ransac.n_hyps} "
           f"W={cfg.ba.window} L={cfg.ba.max_landmarks} frames={n_frames} draws=JAX PRNGKey(2) "
           f"ATE_m={rmse} (JAX seed 0 {IMAGE_REF_ATE_M[ref_name][0]}: "
@@ -1555,6 +1632,205 @@ def device_events_per_call(label: str, fn, calls: int = 20) -> float:
     return len(events) / calls
 
 
+SIFT_DESC_TOL = 1e-6      # per descriptor, card against CPU (tests/test_torch_sift.py's)
+SIFT_MAX_BIN_MOVES = 0.01  # share of descriptors allowed past it (a sample across a bin edge)
+SIFT_BIN_MOVE_L2 = 0.05    # and how far such a descriptor may move
+AKAZE_SLOT_TOL = 1e-5      # near-ties of the max-reduced Hessian (tests/test_torch_akaze.py's)
+
+
+def descriptor_frontend_phase(cfg, n_frames: int, device, results) -> None:
+    """14a and 14b: the AKAZE and SIFT extractors at `cfg`'s width (c2: K=512,
+    128x1024 panoramas) on the card against the port on the CPU, on frames 0
+    and 30 of the preset's rendered sequence and the same LUT values: slots
+    equal but for near-ties (counted); on equal slots validity equal, uv
+    within 1e-3 px, rays within 1e-6, AKAZE's words (rows with any word
+    apart counted, at most 1 % of the slots) and SIFT's descriptors within
+    SIFT_DESC_TOL but for at most SIFT_MAX_BIN_MOVES of them, none beyond
+    SIFT_BIN_MOVE_L2 (card and CPU `atan2` differ in the last bit). Prints
+    each extractor's host ms, device ms and device events per frame. 14b:
+    the Hamming kernel against its plain version on frame 0's AKAZE
+    descriptors, stereo in c2's band and temporal to frame 30."""
+    import torch
+    from sosvo_torch.frontend.akaze import hessian_response, nonlinear_scale_space
+    from sosvo_torch.frontend.detect import gaussian_smooth, harris_response
+    from sosvo_torch.frontend.image_frontend import build_frontend_luts, extract_observations
+    from sosvo_torch.frontend.panorama import warp_panorama
+    from sosvo_torch.sensor.rig import default_rig
+    from sosvo_torch.tools.frontend_parity import slot_mismatches, view_keypoints
+    from sosvo_torch.tools.profile_replay import timed_and_profiled
+    from sosvo_torch.tools.workload import render_frames
+    from sosvo_torch.vo.pipeline import azimuth_of, stereo_triangulate
+
+    cpu = torch.device("cpu")
+    rig, rig_cpu = default_rig(device=device), default_rig(device=cpu)
+    frames = (0, 30)
+    images = render_frames(rig, n_frames, frames, device)
+    torch.cuda.synchronize()
+    for descriptor in ("akaze", "sift"):
+        c = with_descriptor(cfg, descriptor)
+        fe = c.frontend
+        luts = build_frontend_luts(rig, fe)
+        luts_cpu = _luts_on(luts, cpu)
+        extracted = []
+        for f, img in zip(frames, images):
+            got = extract_observations(rig, luts, fe, img)
+            ref = extract_observations(rig_cpu, luts_cpu, fe, img.cpu())
+            kps_got = view_keypoints(luts, fe, img)
+            kps_ref = view_keypoints(luts_cpu, fe, img.cpu())
+            for i, view in enumerate(("top", "bottom")):
+                pano = warp_panorama(img.cpu(), getattr(luts_cpu, view))
+                if descriptor == "akaze":
+                    resp = hessian_response(nonlinear_scale_space(pano)).max(dim=0).values
+                    tol = AKAZE_SLOT_TOL * float(resp.abs().max())
+                else:
+                    tol = 1e-6 * float(harris_response(gaussian_smooth(pano)).abs().max())
+                kr, kg = kps_ref[i], kps_got[i]
+                differ, unexplained = slot_mismatches(kr.rows, kr.cols, kr.response,
+                                                      kg.rows.cpu(), kg.cols.cpu(), fe.pano_width,
+                                                      tol)
+                same = torch.as_tensor(~differ)
+                g_desc = getattr(got, f"desc_{view}").cpu()[same]
+                r_desc = getattr(ref, f"desc_{view}")[same]
+                valid_ok = torch.equal(getattr(got, f"valid_{view}").cpu()[same],
+                                       getattr(ref, f"valid_{view}")[same])
+                uv_err = float((getattr(got, f"uv_{view}").cpu()[same]
+                                - getattr(ref, f"uv_{view}")[same]).abs().max())
+                ray_err = float((getattr(got, f"ray_{view}").cpu()[same]
+                                 - getattr(ref, f"ray_{view}")[same]).abs().max())
+                check(not unexplained.any(),
+                      f"frontend {descriptor} frame {f} {view}: {int(unexplained.sum())} slots "
+                      f"differ between card and CPU with no near-tie")
+                check(valid_ok and uv_err < 1e-3 and ray_err < 1e-6,
+                      f"frontend {descriptor} frame {f} {view}: validity, uv ({uv_err} px) or rays "
+                      f"({ray_err}) differ between card and CPU")
+                if descriptor == "akaze":
+                    rows_apart = int((g_desc != r_desc).any(dim=1).sum())
+                    check(rows_apart <= 0.01 * fe.max_features,
+                          f"frontend akaze frame {f} {view}: {rows_apart} descriptors differ")
+                    desc_note = f"descriptors_with_a_word_apart={rows_apart}"
+                else:
+                    err = (g_desc - r_desc).abs().max(dim=1).values
+                    moved = int((err > SIFT_DESC_TOL).sum())
+                    l2 = float(torch.linalg.vector_norm(g_desc - r_desc, dim=1).max())
+                    check(moved <= SIFT_MAX_BIN_MOVES * fe.max_features and l2 < SIFT_BIN_MOVE_L2,
+                          f"frontend sift frame {f} {view}: {moved} descriptors beyond "
+                          f"{SIFT_DESC_TOL}, largest L2 gap {l2}")
+                    desc_note = (f"desc_max_abs_err={float(err.max()):.3e} "
+                                 f"descriptors_beyond_{SIFT_DESC_TOL}={moved} "
+                                 f"largest_l2_gap={l2:.3e}")
+                print(f"frontend {descriptor} frame {f} {view}: K={fe.max_features} "
+                      f"valid={int(getattr(got, f'valid_{view}').sum())} card vs CPU (same LUT "
+                      f"values): slots_differ={int(differ.sum())} without_near_tie="
+                      f"{int(unexplained.sum())} valid_equal={valid_ok} {desc_note} "
+                      f"uv_max_abs_err={uv_err:.3e} ray_max_abs_err={ray_err:.3e}", flush=True)
+            extracted.append(got)
+        host_s, dev_s, events = timed_and_profiled(lambda: extract_observations(rig, luts, fe,
+                                                                               images[0]))
+        print(f"frontend {descriptor}: per frame (two views) host_ms={1e3 * host_s:.3f} "
+              f"device_ms={1e3 * dev_s:.4f} device_events={events} (c2 width, card; one "
+              f"frame after a warm-up, tools/profile_replay.py:timed_and_profiled)", flush=True)
+        if descriptor == "akaze":  # 14b
+            f0, f1 = extracted
+            valid0 = stereo_triangulate(rig, f0, c)[4]
+            valid1 = stereo_triangulate(rig, f1, c)[4]
+            results["c2_akaze_stereo"] = compare_kernel(
+                "c2_akaze_frame0_stereo", (f0.desc_top, f0.desc_bottom, f0.valid_top,
+                                           f0.valid_bottom, azimuth_of(f0.ray_top),
+                                           azimuth_of(f0.ray_bottom)),
+                fe.stereo_band_rad, c)
+            results["c2_akaze_temporal"] = compare_kernel(
+                "c2_akaze_frame0_frame30_temporal", (f0.desc_top, f1.desc_top, valid0, valid1,
+                                                     None, None), 0.0, c)
+            check(results["c2_akaze_stereo"]["max_abs_err"] == 0.0
+                  and results["c2_akaze_temporal"]["max_abs_err"] == 0.0,
+                  "the matcher on AKAZE descriptors differs from its plain version")
+
+
+def descriptor_cli_phase(cfg_path: Path, descriptor: str, device_args=()) -> None:
+    """14d's command line: configs/c2_chip_ba.json with `descriptor`, written
+    to build/chip_smoke_cli, run in processes of its own (BA mode, a
+    checkpoint every 16 frames): uninterrupted, then killed after frame 20
+    (exit 42) and resumed; the resumed run's frames.jsonl equals the
+    uninterrupted one byte for byte and its report's ATE too. `device_args`
+    go to every run."""
+    import shutil
+    import subprocess
+
+    out = ROOT / "build" / "chip_smoke_cli" / f"c2_{descriptor}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    d = json.loads(cfg_path.read_text())
+    d["pipeline"]["frontend"]["descriptor"] = descriptor
+    config = out / f"c2_{descriptor}.json"
+    config.write_text(json.dumps(d))
+
+    def cli(name, *extra, rc=0):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "sosvo_torch.cli", "--config", str(config),
+                            "--out", str(out / name), "--mode", "ba", "--ckpt-every", "16",
+                            *device_args, *extra], capture_output=True, text=True, cwd=ROOT,
+                           timeout=600)
+        check(r.returncode == rc, f"cli c2_{descriptor} {name}: exit code {r.returncode}, "
+                                  f"expected {rc}: {r.stderr[-3000:]}")
+        print(f"cli c2_{descriptor}_{name}: {' '.join(extra)} exit={r.returncode} "
+              f"process_s={time.perf_counter() - t0} (host clock)", flush=True)
+        return out / name
+
+    full = cli("full")
+    cli("faulted", "--fault-inject", "20", rc=42)
+    resumed = cli("faulted", "--resume")
+    a, b = (full / "frames.jsonl").read_bytes(), (resumed / "frames.jsonl").read_bytes()
+    ra = json.loads((full / "report.json").read_text())
+    rb = json.loads((resumed / "report.json").read_text())
+    rows = [json.loads(x) for x in a.decode().splitlines()]
+    check(a == b, f"cli c2_{descriptor}: the resumed frames.jsonl differs from the "
+                  f"uninterrupted one")
+    check(ra["ate_rmse_m"] == rb["ate_rmse_m"] and all(r["pose_ok"] for r in rows[1:]),
+          f"cli c2_{descriptor}: reports {ra} / {rb}, or a frame lost")
+    print(f"cli c2_{descriptor}: killed after frame 20 (exit 42), resumed at frame 32: "
+          f"frames.jsonl identical ({len(a)} bytes), ate_rmse_m={ra['ate_rmse_m']} in both; "
+          f"report {json.dumps(ra)}", flush=True)
+
+
+def descriptor_phase(device, results, configs: Path = ROOT / "configs", device_args=()) -> dict:
+    """14: the SIFT and AKAZE options (module docstring). Returns each path's
+    (matcher, Schur) launches. 14d's command line reads c2 from `configs`
+    and passes `device_args` to every run."""
+    import numpy as np
+    from sosvo_torch.tools.reference_draws import loop_draws
+    from sosvo_torch.tools.workload import load_image_preset
+
+    c2i, c2i_run = load_image_preset("c2_chip_ba")
+    c3i, c3i_run = load_image_preset("c3_host_pgo")
+    descriptor_frontend_phase(c2i, c2i_run["n_frames"], device, results)           # 14a, 14b
+    launches = {}
+    c2a = with_descriptor(c2i, "akaze")                                            # 14c
+    m, s_, *_ = image_ba_phase("c2_images_akaze_ba", c2a, c2i_run["n_frames"], "c2_akaze_ba", None,
+                               device, timed_reps=1)
+    launches["c2_images_akaze_ba"] = (m, s_)
+    c2s = with_descriptor(c2i, "sift")                                             # 14d
+    m, s_, *_ = image_ba_phase("c2_images_sift_ba", c2s, c2i_run["n_frames"], "c2_sift_ba", None,
+                               device, timed_reps=1)
+    launches["c2_images_sift_ba"] = (m, s_)
+    descriptor_cli_phase(configs / "c2_chip_ba.json", "sift", device_args)
+    c3s = with_descriptor(c3i, "sift")                                             # 14e
+    m, s_, rig, poses, obs, outs = image_ba_phase("c3_images_sift_ba", c3s, c3i_run["n_frames"],
+                                                  "c3_sift_ba", None, device, timed_reps=1)
+    launches["c3_images_sift_ba"] = (m, s_)
+    kf = np.nonzero(outs.is_keyframe.cpu().numpy())[0]
+    leg, m, s_, ate = pgo_phase(
+        "c3_images_sift_pgo_leg", c3s, rig, poses, obs, outs.vo.T_world, kf,
+        *image_ate_limit("c3_sift_pgo"), device, must_drop=False,
+        gumbels=loop_draws(c3s.loop_candidates, c3s.ransac.n_hyps, c3s.frontend.max_features,
+                           device))
+    launches["c3_images_sift_pgo_leg"] = (m, s_)
+    print(f"pgo c3_images_sift_pgo_leg: n_loops={int(leg.n_loops)} (the JAX package's "
+          f"{C3_SIFT_REF_LOOPS[0]}-{C3_SIFT_REF_LOOPS[1]}); ATE after vs JAX seed 0 "
+          f"{IMAGE_REF_ATE_M['c3_sift_pgo'][0]}: {ate - IMAGE_REF_ATE_M['c3_sift_pgo'][0]:+.3e}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1597,6 +1873,11 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"build: ptxas {line.strip()}", flush=True)
     phase_done("1_build")
+    if sys.argv[1:] == ["--descriptors-only"]:  # phase 14 alone
+        descriptor_phase(device, {})
+        phase_done("14_descriptors")
+        print("chip_smoke: --descriptors-only run ends here, with no result line", flush=True)
+        return 0
     if sys.argv[1:] == ["--dist-only"]:  # phases 12, 12b, 13 and 11's ranks alone
         c5_phase(device, {}, {})
         phase_done("12_c5")
@@ -1759,6 +2040,32 @@ def main() -> int:
 
     phase_done("2_10")
 
+    # Device events per kernel call, then phase 14, whose extractors are
+    # profiled too: every profiler session of this process runs before the
+    # phases that start processes of their own on the card (12, 13, 11).
+    # After those, a profiler session here recorded no device events
+    # (PERF.md §6).
+    m_main = results["c1_512_stereo"]
+    s_main = schur["c2_W5_L512"]
+    m_args = main_matcher_args(c1, c1_run["n_landmarks"], device)
+    m_events = device_events_per_call(
+        "matcher", lambda: match_stats_cuda(*m_args, band=c1.frontend.stereo_band_rad))
+    lam_t = torch.full((), lam, device=device)
+    s_events = device_events_per_call("schur", lambda: schur_reduce_cuda(*c2_blocks, lam_t))
+    check(m_events == 1.0 and s_events == 1.0,
+          f"device events per call: matcher {m_events}, Schur {s_events}; expected 1 each")
+    cluster, resident = schur_cuda.cluster_shape(device)
+    clusters, _, _ = schur_cuda.schedule(5, c2.ba.max_landmarks, cluster, resident)
+    print(f"device_events_per_call: matcher {m_events} Schur {s_events}; "
+          f"Schur cluster size {cluster}, {resident} resident, clusters at W5/L512 {clusters}",
+          flush=True)
+
+    # 14. the SIFT and AKAZE descriptor options: extractors, the matcher on
+    # AKAZE bits, c2 with each, the command line with SIFT, c3 with SIFT and its leg
+    desc_launches = descriptor_phase(device, results)
+    launches.update({k: m for k, (m, _) in desc_launches.items()})
+    phase_done("14_descriptors")
+
     # 12. c5 as written: 8 ranks on the card, every window solve landmark-sharded
     c5_m = c5_phase(device, results, schur)
     launches["c5_sharded_replay"] = c5_m["match"]
@@ -1778,20 +2085,6 @@ def main() -> int:
     cli_phase(C4_REF_ATE_LIMIT_M)
     phase_done("11_cli")
 
-    m_main = results["c1_512_stereo"]
-    s_main = schur["c2_W5_L512"]
-    m_args = main_matcher_args(c1, c1_run["n_landmarks"], device)
-    m_events = device_events_per_call(
-        "matcher", lambda: match_stats_cuda(*m_args, band=c1.frontend.stereo_band_rad))
-    lam_t = torch.full((), lam, device=device)
-    s_events = device_events_per_call("schur", lambda: schur_reduce_cuda(*c2_blocks, lam_t))
-    check(m_events == 1.0 and s_events == 1.0,
-          f"device events per call: matcher {m_events}, Schur {s_events}; expected 1 each")
-    cluster, resident = schur_cuda.cluster_shape(device)
-    clusters, _, _ = schur_cuda.schedule(5, c2.ba.max_landmarks, cluster, resident)
-    print(f"device_events_per_call: matcher {m_events} Schur {s_events}; "
-          f"Schur cluster size {cluster}, {resident} resident, clusters at W5/L512 {clusters}",
-          flush=True)
     print(f"phase_wall_s: {json.dumps(phase_s)}", flush=True)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": [
@@ -1799,7 +2092,8 @@ def main() -> int:
          "source": "sosvo_torch/csrc/match_hamming.cu",
          "replaces": "sosvo/kernels/match_pallas.py:162",
          "launches": c3i_m + leg_c3i_m + c4_f2f_m + c4_ba_m + c5_m["match"]
-         + c3l["sharded_leg"]["match"], "launches_by_path": launches,
+         + c3l["sharded_leg"]["match"] + sum(m for m, _ in desc_launches.values()),
+         "launches_by_path": launches,
          "max_abs_err": max(r["max_abs_err"] for r in (*results.values(), loop_match)),
          "ms": m_main["ms"], "plain_ms": m_main["plain_ms"], "bound_ms": m_main["bound_ms"],
          "bound_us": m_main["bound_ms"] * 1e3, "bound_by": m_main["bound_by"],
@@ -1810,12 +2104,15 @@ def main() -> int:
                             shape="2048x2048 loop pair (c3 leg, no band)"),
          "c5_shape": dict(results["c5_1024_stereo"], library_ms=lib1024,
                           bound_us=results["c5_1024_stereo"]["bound_ms"] * 1e3,
-                          shape="1024x1024 stereo (c5 K=1024, band 0.06), every rank's frame")},
+                          shape="1024x1024 stereo (c5 K=1024, band 0.06), every rank's frame"),
+         "akaze_shape": dict(results["c2_akaze_stereo"], library_ms=lib512,
+                             bound_us=results["c2_akaze_stereo"]["bound_ms"] * 1e3,
+                             shape="512x512 stereo on AKAZE M-LDB words (c2, band 0.06)")},
         {"name": "schur_reduce", "route": "cuda",
          "source": "sosvo_torch/csrc/schur_reduce.cu",
          "replaces": "sosvo/kernels/schur_pallas.py:106",
          "launches": c3i_s + leg_c3i_s + c4_f2f_s + c4_ba_s + c5_m["schur"]
-         + c3l["sharded_leg"]["schur"],
+         + c3l["sharded_leg"]["schur"] + sum(s_ for _, s_ in desc_launches.values()),
          "launches_by_path": {"c2_ba_observations": c2_s, "c3_sizes_ba_observations": c3_s,
                               "c2_ba_dropout": drop_s, "c3_pgo_leg_ba": leg_ba_s,
                               "c3_pgo_leg_f2f": leg_f2f_s, "c2_ba_images": c2i_s,
@@ -1826,7 +2123,8 @@ def main() -> int:
                               "c3_long_mesh_leg_one_device": c3l["one_device_leg"]["schur"],
                               "c3_long_mesh_leg_sharded": c3l["sharded_leg"]["schur"],
                               "c3_long_mesh_ba": c3l["ba_replay"]["schur"],
-                              "c3_long_mesh_ba_leg": c3l["ba_leg"]["schur"]},
+                              "c3_long_mesh_ba_leg": c3l["ba_leg"]["schur"],
+                              **{k: s_ for k, (_, s_) in desc_launches.items()}},
          "max_abs_err": max(r["max_abs_err"] for r in (*schur.values(), loop_schur)),
          "ms": s_main["ms"], "plain_ms": s_main["plain_ms"], "bound_ms": s_main["bound_ms"],
          "bound_us": s_main["bound_ms"] * 1e3, "bound_by": s_main["bound_by"],

@@ -22,6 +22,11 @@ checkpoint and writes the same log as an uninterrupted run.
 * `--mode f2f` or `ba` (keyframed window BA), and `--pgo` (or a preset's
   `pose_graph`): loop closure and PGO over the estimated trajectory and,
   in BA mode, the replay's own keyframes;
+* `frontend.descriptor`: "brief" (the default), "akaze" (nonlinear scale
+  space and M-LDB words, Hamming-matched like BRIEF) or "sift" (128-d float
+  descriptors, L2-matched in every stage: stereo, temporal, map
+  association, relocalisation, the loop leg); SIFT needs image mode, since
+  observation mode's synthetic descriptors are 256-bit words;
 * `dist.data_parallel > 1` (config c4): that many sequences (or the run
   block's `n_sequences`), each its own scene, replayed in lockstep by
   `vo/batched.py`; observation mode only, no PGO, and the stride keyframe
@@ -79,6 +84,10 @@ def _refuse_unported(args, cfg) -> None:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported to sosvo_torch "
                                       f"yet: {NOT_PORTED[flag]}")
+    if cfg.frontend.descriptor == "sift" and _source(args, cfg) != "images":
+        raise ValueError("frontend.descriptor 'sift' describes images: run it in image mode "
+                         "(--source images or pipeline.mode 'images'); observation mode's "
+                         "descriptors are 256-bit words")
     if args.verify_sharded and (args.mode != "ba" or cfg.dist.model_parallel <= 1
                                 or cfg.dist.data_parallel > 1):
         raise ValueError("--verify-sharded checks the model-sharded BA replay: it needs "
@@ -209,7 +218,8 @@ def main(argv=None) -> int:
             replay_chunk = lambda s, o: run_replay_ba_batched(rig, cfg, s, o)  # noqa: E731
             get_T, get_vo = (lambda o: o.vo.T_world), (lambda o: lane(o.vo, 0))
         else:
-            state0 = init_batched_states(S, K, SEED + 2, T0=gt[:, 0], device=device)
+            state0 = init_batched_states(S, K, SEED + 2, T0=gt[:, 0], device=device,
+                                         descriptor=cfg.frontend.descriptor)
             replay_chunk = lambda s, o: run_replay_batched(rig, cfg, s, o)  # noqa: E731
             get_T, get_vo = (lambda o: o.T_world), (lambda o: lane(o, 0))  # log sequence 0
         get_kf = None  # PGO, the keyframe flags' consumer, is non-batched only
@@ -239,7 +249,8 @@ def main(argv=None) -> int:
             get_T, get_vo, get_kf = (lambda o: o.vo.T_world), (lambda o: o.vo), \
                 (lambda o: o.is_keyframe)
         else:
-            state0 = init_track_state(K, state_gen, T0=gt[0], device=device)
+            state0 = init_track_state(K, state_gen, T0=gt[0], device=device,
+                                      descriptor=cfg.frontend.descriptor)
             replay_chunk = lambda s, o: run_replay(rig, cfg, s, o)  # noqa: E731
             get_T, get_vo, get_kf = (lambda o: o.T_world), (lambda o: o), None
 

@@ -3,9 +3,9 @@
 Used by the parity tests so both packages compute on the same calibration,
 inputs and state; this module imports neither jax nor `sosvo` (it reads
 fields by name). Like every entry point, each function puts its tensors on
-the card unless the caller names another device. Descriptors are uint32 in
-the reference and int32 bit patterns here: `desc_to_torch` views, never
-converts values.
+the card unless the caller names another device. Binary descriptors are
+uint32 in the reference and int32 bit patterns here: `desc_to_torch` views
+them, never converts values; float (SIFT) descriptors pass through as f32.
 """
 
 from __future__ import annotations
@@ -32,14 +32,20 @@ def _t(x, device, dtype=None) -> torch.Tensor:
 
 
 def desc_to_torch(desc, device: torch.device | str | None = None) -> torch.Tensor:
-    """uint32 descriptor words -> int32 tensor with the same bits."""
-    return torch.as_tensor(np.ascontiguousarray(np.asarray(desc, np.uint32)).view(np.int32).copy(),
-                           device=resolve(device))
+    """Descriptors -> the port's: uint32 words -> int32 with the same bits;
+    float descriptors -> f32."""
+    a = np.asarray(desc)
+    if np.issubdtype(a.dtype, np.floating):
+        return _t(a, device, torch.float32)
+    words = np.ascontiguousarray(a.astype(np.uint32, copy=False)).view(np.int32)
+    return torch.as_tensor(words.copy(), device=resolve(device))
 
 
 def desc_to_numpy(desc: torch.Tensor) -> np.ndarray:
-    """int32 descriptor words -> the reference's uint32 layout."""
-    return desc.detach().cpu().numpy().view(np.uint32)
+    """The port's descriptors -> the reference's layout: int32 words ->
+    uint32 with the same bits; float descriptors -> float32."""
+    a = desc.detach().cpu().numpy()
+    return a if desc.is_floating_point() else a.view(np.uint32)
 
 
 def view_from_numpy(view, device: torch.device | str | None = None) -> ViewParams:

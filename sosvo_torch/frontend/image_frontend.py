@@ -1,13 +1,18 @@
 """Image frontend: raw omni image -> panoramas -> keypoints -> observations
 (counterpart of `sosvo/frontend/image_frontend.py`).
 
-Per view: the panorama warp, Harris detection with a fixed top-K, upright
-(or steered) BRIEF, and the keypoints lifted to rays and re-projected to
-raw pixels, into the same fixed-size `FrameObservations` the observation
-mode uses, so image mode shares every downstream stage.
-
-Not ported: the SIFT and AKAZE descriptors (`descriptor="sift"` or
-`"akaze"` raises NotImplementedError).
+Per view: the panorama warp, then by `cfg.descriptor`
+  * "brief": Harris detection with a fixed top-K per pyramid octave and
+    upright (or steered) BRIEF words;
+  * "sift": the same detection, and SIFT-style float descriptors
+    (`descriptor.describe_sift`) per octave;
+  * "akaze": the nonlinear scale space, Hessian detection and M-LDB words
+    (`frontend/akaze.py`); its diffusion levels take the place of the
+    linear pyramid, so `n_scales` is ignored, as in the reference;
+and the keypoints lifted to rays and re-projected to raw pixels, into the
+same fixed-size `FrameObservations` the observation mode uses, so image
+mode shares every downstream stage (descriptors: int32 words, or (K, 128)
+f32 for SIFT).
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from typing import NamedTuple
 
 import torch
 
-from sosvo_torch.frontend.descriptor import describe, orientation
+from sosvo_torch.frontend.akaze import extract_akaze
+from sosvo_torch.frontend.descriptor import describe, describe_sift, orientation
 from sosvo_torch.frontend.detect import detect, gaussian_smooth
 from sosvo_torch.frontend.panorama import (PanoGeometry, build_pano_geometry, pano_ray,
                                            warp_panorama)
@@ -33,10 +39,7 @@ class FrontendLUTs(NamedTuple):
     bottom: PanoGeometry
 
 
-def _check_descriptor(cfg: FrontendConfig) -> None:
-    if cfg.descriptor != "brief":
-        raise NotImplementedError(
-            f"descriptor={cfg.descriptor!r}: only the 256-bit BRIEF frontend is ported")
+DESCRIPTORS = ("brief", "sift", "akaze")
 
 
 def build_frontend_luts(rig: OmnistereoRig, cfg: FrontendConfig) -> FrontendLUTs:
@@ -59,6 +62,12 @@ def detect_args(cfg: FrontendConfig) -> dict:
                 fast_threshold=cfg.fast_threshold)
 
 
+def akaze_args(cfg: FrontendConfig) -> dict:
+    """`akaze.extract_akaze`'s keyword arguments for a frontend configuration."""
+    return dict(patch=cfg.descriptor_patch, threshold=cfg.detect_threshold * 1e-2,
+                nms_radius=cfg.nms_grid)
+
+
 def _halve(img: torch.Tensor) -> torch.Tensor:
     """Factor-2 average-pool downsample (a pyramid octave)."""
     h, w = img.shape
@@ -72,6 +81,7 @@ def _view_features(cfg: FrontendConfig, pano: torch.Tensor, view: ViewParams,
     coordinates mapped back to full resolution (centre of the pooled cell)."""
     k, n = cfg.max_features, cfg.n_scales
     ks = [k - (n - 1) * (k // n)] + [k // n] * (n - 1)
+    describe_fn = describe_sift if cfg.descriptor == "sift" else describe
     rows_l, cols_l, ok_l, desc_l = [], [], [], []
     lvl_img = pano
     for lvl in range(n):
@@ -80,30 +90,45 @@ def _view_features(cfg: FrontendConfig, pano: torch.Tensor, view: ViewParams,
         smoothed = gaussian_smooth(lvl_img)
         kps = detect(lvl_img, ks[lvl], **detect_args(cfg))
         angles = orientation(smoothed, kps) if cfg.oriented else None
-        desc_l.append(describe(lvl_img, kps, smoothed=smoothed, angles=angles))
+        desc_l.append(describe_fn(lvl_img, kps, smoothed=smoothed, angles=angles))
         s = float(2 ** lvl)
         # Pooled cell i covers full-res [s*i, s*i + s), centred at s*i + (s-1)/2.
         rows_l.append(kps.rows * s + (s - 1.0) / 2.0)
         cols_l.append(kps.cols * s + (s - 1.0) / 2.0)
         ok_l.append(kps.valid)
-    rows, cols = torch.cat(rows_l), torch.cat(cols_l)
+    return _lift(view, geom, torch.cat(rows_l), torch.cat(cols_l), torch.cat(desc_l),
+                 torch.cat(ok_l))
+
+
+def _akaze_view_features(cfg: FrontendConfig, pano: torch.Tensor, view: ViewParams,
+                         geom: PanoGeometry):
+    """(uv, rays, desc, valid) of one warped panorama with the AKAZE option:
+    K slots over its own diffusion levels at full resolution."""
+    kps, desc = extract_akaze(pano, cfg.max_features, **akaze_args(cfg))
+    return _lift(view, geom, kps.rows, kps.cols, desc, kps.valid)
+
+
+def _lift(view: ViewParams, geom: PanoGeometry, rows, cols, desc, valid):
+    """Keypoints at panorama (rows, cols) -> (uv, rays, desc, valid)."""
     rays = pano_ray(geom.height, geom.width, geom.min_elevation, geom.max_elevation, rows, cols)
     uv, _ = project(view, rays)
     # Keypoints whose pano cell has no raw-image support are invalid; the
     # cell index truncates toward zero, as the reference's int cast does.
     lut_ok = geom.valid[rows.to(torch.int64), cols.to(torch.int64)]
-    return uv, rays, torch.cat(desc_l), torch.cat(ok_l) & lut_ok
+    return uv, rays, desc, valid & lut_ok
 
 
 def extract_observations(rig: OmnistereoRig, luts: FrontendLUTs, cfg: FrontendConfig,
                          image: torch.Tensor) -> FrameObservations:
     """The full frontend for one raw omni image (on its device); fixed K
     slots per view, `lm_id` all -1."""
-    _check_descriptor(cfg)
-    uv_t, ray_t, desc_t, ok_t = _view_features(cfg, warp_panorama(image, luts.top), rig.top,
-                                               luts.top)
-    uv_b, ray_b, desc_b, ok_b = _view_features(cfg, warp_panorama(image, luts.bottom),
-                                               rig.bottom, luts.bottom)
+    if cfg.descriptor not in DESCRIPTORS:
+        raise ValueError(f"unknown descriptor {cfg.descriptor!r}; one of {DESCRIPTORS}")
+    view_features = _akaze_view_features if cfg.descriptor == "akaze" else _view_features
+    uv_t, ray_t, desc_t, ok_t = view_features(cfg, warp_panorama(image, luts.top), rig.top,
+                                              luts.top)
+    uv_b, ray_b, desc_b, ok_b = view_features(cfg, warp_panorama(image, luts.bottom),
+                                              rig.bottom, luts.bottom)
     return FrameObservations(
         uv_top=uv_t, uv_bottom=uv_b, ray_top=ray_t, ray_bottom=ray_b,
         desc_top=desc_t, desc_bottom=desc_b, valid_top=ok_t, valid_bottom=ok_b,

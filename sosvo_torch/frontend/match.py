@@ -1,16 +1,20 @@
-"""Descriptor matching: Hamming distance + ratio test + cross-check, plain torch.
+"""Descriptor matching: Hamming or L2 distance + ratio test + cross-check,
+plain torch.
 
-Counterpart of `sosvo/frontend/match.py`, and the plain twin of the CUDA
-kernel in `sosvo_torch/kernels/match_cuda.py`: that wrapper runs
-`match_stats` for CPU tensors, and `chip_smoke.py` holds the kernel against
-it on the card.
+Counterpart of `sosvo/frontend/match.py`. The Hamming statistics
+`match_stats` are the plain twin of the CUDA kernel in
+`sosvo_torch/kernels/match_cuda.py`: that wrapper runs `match_stats` for CPU
+tensors, and `chip_smoke.py` holds the kernel against it on the card. The
+L2 matcher of float (SIFT) descriptors, `match_l2`, is stock torch on every
+device: the reference computes it in XLA, outside any Pallas kernel.
 
 Hamming distance between 256-bit descriptors is a +/-1 matmul:
     hamming(a, b) = (NBITS - <bits(a)*2-1, bits(b)*2-1>) / 2,
 exact in f32 (integers up to 256). Invalid rows/columns and pairs outside the
 stereo azimuth band get an additive +BIG, in the reference's order
 (d + pen_row + pen_col, then the band term), so the two implementations
-agree bit for bit.
+agree bit for bit. `metric_params` says which matcher and threshold a
+frontend configuration's descriptor family takes.
 """
 
 from __future__ import annotations
@@ -71,6 +75,27 @@ def column_band_penalty(cols_a: torch.Tensor, cols_b: torch.Tensor, max_delta: f
     return torch.where(torch.abs(d) <= max_delta, zero, zero + BIG)
 
 
+def l2_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """(KA, KB) Euclidean distances of float descriptors by the reference's
+    Gram form, |a|^2 + |b|^2 - 2 a.b, then sqrt(max(., 0)), in that order.
+    The product is one f32 `torch.matmul` (TF32 stays off), the reference's
+    `Precision.HIGHEST`; near-identical descriptors cancel, so a distance
+    near 0 keeps few correct bits, as in the reference."""
+    gram = torch.matmul(desc_a, desc_b.T)
+    sq = (torch.sum(desc_a * desc_a, dim=1)[:, None] + torch.sum(desc_b * desc_b, dim=1)[None, :]
+          - 2.0 * gram)
+    return torch.sqrt(torch.clamp_min(sq, 0.0))
+
+
+def metric_params(fe) -> tuple[str, float]:
+    """(metric, max_distance) of a FrontendConfig's descriptor family: every
+    stage that matches descriptors routes through it, so a float (SIFT)
+    descriptor never reaches the Hamming matcher."""
+    if fe.descriptor == "sift":
+        return "l2", fe.match_max_distance_l2
+    return "hamming", fe.match_max_distance
+
+
 def _pen(valid: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros((), dtype=torch.float32, device=valid.device)
     return torch.where(valid, zero, zero + BIG)
@@ -80,7 +105,12 @@ def match_stats(desc_a, desc_b, valid_a, valid_b, az_a=None, az_b=None,
                 band: float = 0.0) -> MatchStats:
     """Plain matcher statistics: the CUDA kernel's contract. `band` <= 0
     means no azimuth band."""
-    dmat = hamming_matrix(desc_a, desc_b)
+    return _reduce(hamming_matrix(desc_a, desc_b), valid_a, valid_b, az_a, az_b, band)
+
+
+def _reduce(dmat, valid_a, valid_b, az_a, az_b, band: float) -> MatchStats:
+    """The statistics of a distance matrix with the validity and band
+    penalties added in the reference's order."""
     dmat = dmat + _pen(valid_a)[:, None] + _pen(valid_b)[None, :]
     if band > 0.0:
         dmat = dmat + column_band_penalty(az_a, az_b, band, wrap=2.0 * math.pi)
@@ -103,3 +133,19 @@ def match_from_stats(stats: MatchStats, valid_a: torch.Tensor, max_distance: flo
     ok = (valid_a & (stats.d_best <= max_distance) & (stats.d_best < ratio * stats.d_second)
           & (stats.col_argmin[idx_b] == rows))
     return MatchResult(idx_b=idx_b, dist=stats.d_best, valid=ok)
+
+
+def match_l2(desc_a: torch.Tensor, desc_b: torch.Tensor, valid_a: torch.Tensor,
+             valid_b: torch.Tensor, max_distance: float = 0.7, ratio: float = 0.8,
+             az_a: torch.Tensor | None = None, az_b: torch.Tensor | None = None,
+             band: float = 0.0) -> MatchResult:
+    """Brute-force L2 matching of float descriptors with ratio test and
+    cross-check (the reference's `match(..., metric="l2")`, its stereo
+    band the wrapped column penalty): best and second best with the winner
+    masked to inf, the strict ratio test, the cross-check. One plain
+    function on every device; distances and `max_distance` are Euclidean."""
+    if not desc_a.is_floating_point() or not desc_b.is_floating_point():
+        raise ValueError(f"match_l2 takes float descriptors, got {desc_a.dtype} and "
+                         f"{desc_b.dtype}")
+    stats = _reduce(l2_matrix(desc_a, desc_b), valid_a, valid_b, az_a, az_b, band)
+    return match_from_stats(stats, valid_a, max_distance, ratio)

@@ -19,14 +19,17 @@ raise); CPU tensors run the plain twin `sosvo_torch.frontend.match.
 match_stats`. There is no fallback from one to the other. `launches` counts
 kernel launches, so a run can show that its matches went through the kernel.
 The epilogue (threshold, strict ratio test, cross-check) is torch ops on the
-kernel's outputs, as in `match_pallas`.
+kernel's outputs, as in `match_pallas`. `match_metric` routes a match by
+descriptor family: Hamming words to this kernel, float (SIFT) descriptors
+to the plain L2 matcher, which the reference too computes outside Pallas.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sosvo_torch.frontend.match import MatchResult, MatchStats, WORDS, match_from_stats, match_stats
+from sosvo_torch.frontend.match import (MatchResult, MatchStats, WORDS, match_from_stats, match_l2,
+                                        match_stats)
 from sosvo_torch.kernels import build
 
 launches = 0  # kernel launches since import or the last reset_launches()
@@ -139,3 +142,17 @@ def match_hamming(desc_a: torch.Tensor, desc_b: torch.Tensor,
     else:
         raise ValueError(f"match_hamming: no matcher for device {desc_a.device}")
     return match_from_stats(stats, valid_a, max_distance, ratio)
+
+
+def match_metric(metric: str, desc_a: torch.Tensor, desc_b: torch.Tensor,
+                 valid_a: torch.Tensor, valid_b: torch.Tensor, max_distance: float,
+                 ratio: float, az_a: torch.Tensor | None = None,
+                 az_b: torch.Tensor | None = None, band: float = 0.0) -> MatchResult:
+    """`match_hamming` for metric "hamming" (int32 words), `match_l2` for
+    "l2" (float descriptors): the metric of `frontend.match.metric_params`."""
+    if metric == "l2":
+        return match_l2(desc_a, desc_b, valid_a, valid_b, max_distance, ratio, az_a, az_b, band)
+    if metric == "hamming":
+        return match_hamming(desc_a, desc_b, valid_a, valid_b, max_distance, ratio, az_a, az_b,
+                             band)
+    raise ValueError(f"unknown descriptor metric {metric!r}")

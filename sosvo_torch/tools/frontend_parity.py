@@ -14,15 +14,20 @@ from __future__ import annotations
 
 import numpy as np
 
+from sosvo_torch.frontend.akaze import extract_akaze
 from sosvo_torch.frontend.detect import Keypoints, detect
-from sosvo_torch.frontend.image_frontend import FrontendLUTs, detect_args
+from sosvo_torch.frontend.image_frontend import FrontendLUTs, akaze_args, detect_args
 from sosvo_torch.frontend.panorama import warp_panorama
 from sosvo_torch.utils.config import FrontendConfig
 
 
 def view_keypoints(luts: FrontendLUTs, cfg: FrontendConfig, image) -> tuple[Keypoints, Keypoints]:
     """The keypoints `extract_observations` selects in the top and the
-    bottom panorama of `image` (one pyramid level: `n_scales=1`)."""
+    bottom panorama of `image` (one pyramid level: `n_scales=1`; AKAZE's
+    detector, which takes no pyramid, for `descriptor="akaze"`)."""
+    if cfg.descriptor == "akaze":
+        return tuple(extract_akaze(warp_panorama(image, g), cfg.max_features,
+                                   **akaze_args(cfg))[0] for g in (luts.top, luts.bottom))
     if cfg.n_scales != 1:
         raise ValueError("view_keypoints reads the full-resolution level only")
     return tuple(detect(warp_panorama(image, g), cfg.max_features, **detect_args(cfg))

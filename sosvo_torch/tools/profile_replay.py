@@ -1,6 +1,7 @@
 """Where a replay's time goes on the card: torch.profiler over one replay.
 
     python -m sosvo_torch.tools.profile_replay [--ba | --pgo | --images | --batched]
+    python -m sosvo_torch.tools.profile_replay --images --descriptor brief sift akaze
     python -m sosvo_torch.tools.profile_replay --kernels [TREE ...] [--rounds N]
 
 For bench.py's c1 workload (10 frames) and c3's sizes in observation mode
@@ -39,6 +40,8 @@ warm-up: host ms per frame of the extraction, unprofiled; the frontend's
 device events and device ms per frame and its share of the replay's device
 time; the replay's frames/s, device busy share and device events per
 frame, and its ATE and pose_ok with the port's own RANSAC generator.
+`--descriptor brief sift akaze` runs them once per descriptor family
+(`frontend.descriptor` replaced in each preset; default brief).
 
 With --batched, the c4 batched replay (configs/c4_batched_replay.json:
 K=512, H=512, 8192 landmarks, W=5, L=512, a keyframe every 4 frames) frame
@@ -77,6 +80,7 @@ breakdown of one wrapper call of each kernel; with no TREE, only these.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import time
 
@@ -218,7 +222,7 @@ def profile_pgo(device) -> None:
                                     max_name_column_width=50), flush=True)
 
 
-def _timed_and_profiled(fn) -> tuple[float, float, int]:
+def timed_and_profiled(fn) -> tuple[float, float, int]:
     """(unprofiled wall s, device s, device events) of one call of `fn`
     after a warm-up call."""
     fn()
@@ -275,19 +279,23 @@ def profile_batched(device) -> None:
                   f"device_events_per_lane_frame={len(dev) / (n_profiled * n_lanes)}", flush=True)
 
 
-def profile_images(device) -> None:
-    """The image-mode presets' frontend and BA replay (module docstring)."""
+def profile_images(device, descriptor: str = "brief") -> None:
+    """The image-mode presets' frontend and BA replay (module docstring),
+    with `descriptor` in place of each preset's."""
     for preset, n_frames in (("c2_chip_ba", None), ("c3_host_pgo", 40)):
         cfg, run = load_image_preset(preset)
+        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
+                                                                    descriptor=descriptor))
         n = n_frames or run["n_frames"]
         rig, poses, images, luts, _ = make_image_workload(cfg, n, device)
-        fe_wall, fe_dev, fe_events = _timed_and_profiled(
+        fe_wall, fe_dev, fe_events = timed_and_profiled(
             lambda: extract_sequence(rig, luts, cfg.frontend, images))
         replay = image_ba_replayer(cfg, rig, poses, images, luts, device)
-        wall, dev_s, events = _timed_and_profiled(replay)
+        wall, dev_s, events = timed_and_profiled(replay)
         outs = replay()[1]
         ate = float(ate_rmse(outs.vo.T_world[1:, :3, 3], poses[1:, :3, 3])[0])
-        print(f"{preset} image mode, window BA: K={cfg.frontend.max_features} "
+        print(f"{preset} image mode, window BA, descriptor={descriptor}: "
+              f"K={cfg.frontend.max_features} "
               f"pano={cfg.frontend.pano_height}x{cfg.frontend.pano_width} frames={n} "
               f"frontend: host_ms_per_frame_unprofiled={1e3 * fe_wall / n} "
               f"device_ms_per_frame={1e3 * fe_dev / n} device_events_per_frame={fe_events / n} "
@@ -573,6 +581,9 @@ def main() -> None:
     ap.add_argument("--pgo", action="store_true", help="profile c3's loop-closure leg")
     ap.add_argument("--images", action="store_true",
                     help="profile the image-mode presets' frontend and BA replay")
+    ap.add_argument("--descriptor", nargs="+", default=["brief"],
+                    choices=["brief", "sift", "akaze"],
+                    help="with --images: the descriptor families to profile, in turn")
     ap.add_argument("--batched", action="store_true",
                     help="profile c4's batched replay at S = 1, 2, 4 and 8 lanes")
     ap.add_argument("--kernels", nargs="*", metavar="TREE",
@@ -593,7 +604,8 @@ def main() -> None:
         profile_pgo(device)
         return
     if args.images:
-        profile_images(device)
+        for descriptor in args.descriptor:
+            profile_images(device, descriptor)
         return
     if args.batched:
         profile_batched(device)

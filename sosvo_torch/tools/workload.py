@@ -127,7 +127,8 @@ def batched_replayer(cfg: PipelineConfig, rig, gt_poses, obs, device, mode: str)
                                            device=device)
             return run_replay_ba_batched(rig, cfg, state, obs)
         state = init_batched_states(gt_poses.shape[0], cfg.frontend.max_features, SEED + 2,
-                                    T0=gt_poses[:, 0], device=device)
+                                    T0=gt_poses[:, 0], device=device,
+                                    descriptor=cfg.frontend.descriptor)
         return run_replay_batched(rig, cfg, state, obs)
     return replay
 
@@ -138,7 +139,7 @@ def replayer(cfg: PipelineConfig, rig, scene, obs, device):
     def replay():
         gen = torch.Generator(device=device).manual_seed(SEED + 2)
         state = init_track_state(cfg.frontend.max_features, gen, T0=scene.poses[0],
-                                 device=device)
+                                 device=device, descriptor=cfg.frontend.descriptor)
         return run_replay(rig, cfg, state, obs)
     return replay
 

@@ -6,8 +6,10 @@ A state is any NamedTuple tree of tensors and `torch.Generator`s (a
 generators). `save_state` writes its tensors in field order, moved to the
 CPU, and every generator's `get_state()` to `<dir>/step_{n:08d}`;
 `restore_state` loads it with `weights_only=True` into a template of the
-same structure: tensors onto the template's devices and dtypes, and each
-template generator `set_state` from the saved one. The random streams are
+same structure: tensors onto the template's devices (each must have the
+template's shape and dtype: a SIFT state's float descriptor buffers do not
+restore into a BRIEF template's int32 words, or back), and each template
+generator `set_state` from the saved one. The random streams are
 part of the state, so a replay resumed from step n equals the
 uninterrupted one bit for bit.
 """
@@ -80,10 +82,10 @@ def restore_state(ckpt_dir: str | Path, step: int, template: Any) -> Any:
                          f"saved, {len(tensors)} and {len(generators)} expected")
     restored = []
     for r, t in zip(raw["tensors"], tensors):
-        if r.shape != t.shape:
-            raise ValueError(f"checkpoint tensor of shape {tuple(r.shape)} where the template "
-                             f"has {tuple(t.shape)}")
-        restored.append(r.to(device=t.device, dtype=t.dtype))
+        if r.shape != t.shape or r.dtype != t.dtype:
+            raise ValueError(f"checkpoint tensor {r.dtype} {tuple(r.shape)} where the template "
+                             f"has {t.dtype} {tuple(t.shape)}")
+        restored.append(r.to(device=t.device))
     for r, g in zip(raw["generators"], generators):
         g.set_state(r)
     return _rebuild(template, iter(restored))

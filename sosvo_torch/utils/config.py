@@ -4,9 +4,9 @@ Counterpart of `sosvo/utils/config.py`: the same dataclasses, field names
 and defaults, so the presets in `configs/*.json` load unchanged. (Importing
 the JAX module would run `sosvo/__init__.py`, which imports jax.) The port
 runs the observation- and image-mode replays, window BA, loop closure,
-PGO and the batched replay (`dist.data_parallel`) from these fields.
-Fields of what it does not run yet (model- and PGO-sharding, the SIFT and
-AKAZE descriptors, the Pallas switches) are kept so every preset loads.
+PGO, the batched replay (`dist.data_parallel`), model- and PGO-sharding and
+the three descriptor families from these fields. The Pallas switches are
+kept so every preset loads; the port ignores them.
 """
 
 from __future__ import annotations
@@ -38,10 +38,10 @@ class FrontendConfig:
     fast_threshold: float = 0.04
     oriented: bool = False
     n_scales: int = 1
-    descriptor: str = "brief"        # "brief" (256-bit Hamming); "sift" and
-                                     # "akaze" are not ported: the frontend
-                                     # and the matcher raise NotImplementedError
-    match_max_distance_l2: float = 0.7
+    descriptor: str = "brief"        # "brief" and "akaze" (256-bit words,
+                                     # Hamming matcher) or "sift" (128-d
+                                     # float, L2 matcher); image mode
+    match_max_distance_l2: float = 0.7  # L2 acceptance threshold (SIFT)
 
 
 @dataclass(frozen=True)
@@ -72,9 +72,9 @@ class BAConfig:
 @dataclass(frozen=True)
 class DistConfig:
     """Mesh / sharding knobs. `data_parallel` > 1 selects the batched replay
-    of that many sequences on one card (`vo/batched.py`, config c4);
-    `model_parallel` and `pgo_shards` (config c5, the c3_long presets) are
-    not ported yet: the command line refuses them."""
+    of that many sequences (`vo/batched.py`, config c4); `model_parallel`
+    (config c5) shards the window solves' landmarks and `pgo_shards` (the
+    c3_long presets) the loop leg over ranks (`sosvo_torch/dist/`)."""
 
     data_axis: str = "data"
     model_axis: str = "model"

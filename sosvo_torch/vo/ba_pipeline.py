@@ -19,6 +19,9 @@ The relocalisation RANSAC draws its (H, L) Gumbel matrix from the track's
 generator when it runs, unless the caller passes `StepDraws.gumbel_reloc`.
 The batched replay relocalises with `relocalize_lanes`: one host read of
 every lane's `pose_ok`, then `try_relocalize` for the lost lanes only.
+Map association and relocalisation match with the descriptor family's
+metric and threshold (`frontend.match.metric_params`): Hamming for BRIEF
+and AKAZE, L2 for SIFT, whose map holds float descriptors.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from sosvo_torch.frontend.match import metric_params
 from sosvo_torch.geom.lie import geodesic_angle, mat_inv, norm
 from sosvo_torch.geometry.ransac import gumbel, ransac_rigid
 from sosvo_torch.sensor.rig import OmnistereoRig
@@ -56,9 +60,11 @@ def init_ba_state(cfg: PipelineConfig, generator: torch.Generator,
                   T0: torch.Tensor | None = None,
                   device: torch.device | str | None = None) -> BAState:
     device = resolve(device)
+    descriptor = cfg.frontend.descriptor
     return BAState(track=init_track_state(cfg.frontend.max_features, generator, T0=T0,
-                                          device=device),
-                   map=init_map_state(cfg.ba.window, cfg.ba.max_landmarks, device=device))
+                                          device=device, descriptor=descriptor),
+                   map=init_map_state(cfg.ba.window, cfg.ba.max_landmarks, device=device,
+                                      descriptor=descriptor))
 
 
 def try_relocalize(cfg: PipelineConfig, m: MapState, track: TrackState, out: StepOutput,
@@ -67,10 +73,10 @@ def try_relocalize(cfg: PipelineConfig, m: MapState, track: TrackState, out: Ste
     that it is lost).
 
     Matches the frame's stereo-triangulated features against the map (one
-    L x K Hamming match) and solves world->rig by 3D-3D RANSAC on the
-    (world landmark, rig-frame triangulation) pairs with the (H, L) Gumbel
-    matrix `gumbel_hl`; on success the track pose and the frame's pose_ok
-    and inlier count are overwritten.
+    L x K match, Hamming or L2 by descriptor family) and solves world->rig
+    by 3D-3D RANSAC on the (world landmark, rig-frame triangulation) pairs
+    with the (H, L) Gumbel matrix `gumbel_hl`; on success the track pose
+    and the frame's pose_ok and inlier count are overwritten.
     """
     mm = _match(cfg, m.lm_desc, feats.desc, m.lm_valid, feats.valid)
     pv = mm.valid & m.lm_valid & feats.valid[mm.idx_b]
@@ -133,10 +139,10 @@ def keyframe_stage(rig: OmnistereoRig, cfg: PipelineConfig, m: MapState, track: 
     cost = torch.zeros((), dtype=torch.float32, device=track.T_world.device)
     if not is_kf:
         return m, track.T_world, cost
+    metric, max_distance = metric_params(cfg.frontend)
     m = (insert_fn or insert_keyframe)(m, track.T_world, feats, track.frame_idx - 1,
-                                       max_new=cfg.ba.max_new,
-                                       match_max_distance=cfg.frontend.match_max_distance,
-                                       match_ratio=cfg.frontend.match_ratio)
+                                       max_new=cfg.ba.max_new, match_max_distance=max_distance,
+                                       match_ratio=cfg.frontend.match_ratio, metric=metric)
     if n_kf + 1 >= 2:  # BA once the window holds two keyframes
         m, cost = ba_fn(m) if ba_fn is not None else \
             run_window_ba(rig, m, iters=cfg.ba.iters, huber_delta=cfg.ba.huber_delta)

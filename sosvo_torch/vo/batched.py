@@ -51,20 +51,24 @@ def _T0s(n_seq: int, T0: torch.Tensor | None, device) -> torch.Tensor:
 
 
 def init_batched_states(n_seq: int, max_features: int, seed: int, T0: torch.Tensor | None = None,
-                        device: torch.device | str | None = None) -> TrackState:
-    """Stacked TrackStates, leading axis = sequence; lane s draws from
+                        device: torch.device | str | None = None,
+                        descriptor: str = "brief") -> TrackState:
+    """Stacked TrackStates, leading axis = sequence, with `descriptor`'s
+    buffers (`state.desc_zeros`); lane s draws from
     `lane_generators(seed, n_seq)[s]`."""
     device = resolve(device)
     gens = lane_generators(seed, n_seq, device)
     T0s = _T0s(n_seq, T0, device)
-    return stack_lanes([init_track_state(max_features, g, T0=T0s[s], device=device)
+    return stack_lanes([init_track_state(max_features, g, T0=T0s[s], device=device,
+                                         descriptor=descriptor)
                         for s, g in enumerate(gens)])
 
 
 def init_batched_ba_states(n_seq: int, cfg: PipelineConfig, seed: int,
                            T0: torch.Tensor | None = None,
                            device: torch.device | str | None = None) -> BAState:
-    """Stacked BAStates (track and keyframe map), leading axis = sequence."""
+    """Stacked BAStates (track and keyframe map, with the configured
+    descriptor family's buffers), leading axis = sequence."""
     device = resolve(device)
     gens = lane_generators(seed, n_seq, device)
     T0s = _T0s(n_seq, T0, device)

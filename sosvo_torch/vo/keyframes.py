@@ -15,8 +15,10 @@ semantics are kept on purpose:
     descending sort does the same, `torch.topk` promises no order;
   * the "claimed" scatter has duplicate indices: `scatter_reduce("amax")`,
     as `.at[].max()`, not an indexed assignment.
-The map association is an L x K Hamming match through `match_hamming`: the
-CUDA kernel on CUDA tensors.
+The map association is an L x K match with the caller's metric
+(`frontend.match.metric_params`): Hamming through `match_hamming`, the CUDA
+kernel on CUDA tensors, or L2 on float (SIFT) descriptors. The landmark
+descriptor buffer takes the frontend's family (`state.desc_zeros`).
 """
 
 from __future__ import annotations
@@ -27,12 +29,11 @@ import torch
 
 from sosvo_torch.backend.ba import BAWindow, ba_solve
 from sosvo_torch.geom.lie import mat_inv, transform_points
-from sosvo_torch.kernels.match_cuda import match_hamming
+from sosvo_torch.kernels.match_cuda import match_metric
 from sosvo_torch.sensor.model import viewpoint
 from sosvo_torch.sensor.rig import OmnistereoRig
-from sosvo_torch.synth.scene import DESC_WORDS
 from sosvo_torch.utils.device import resolve
-from sosvo_torch.vo.state import KeyframeFeatures
+from sosvo_torch.vo.state import KeyframeFeatures, desc_zeros
 
 STALE_BIG = 1e6
 
@@ -46,15 +47,15 @@ class MapState(NamedTuple):
     head: torch.Tensor          # () int32 most recent keyframe slot
     n_kf: torch.Tensor          # () int32 number of keyframes inserted so far
     lm_pos: torch.Tensor        # (L, 3) world-frame landmark positions
-    lm_desc: torch.Tensor       # (L, DESC_WORDS) int32 bit patterns
+    lm_desc: torch.Tensor       # (L, DESC_WORDS) int32 bit patterns, or (L, 128) f32 (SIFT)
     lm_valid: torch.Tensor      # (L,) bool
     lm_last_seen: torch.Tensor  # (L,) int32 keyframe counter of last observation
     obs_rays: torch.Tensor      # (W, L, 2, 3) observed unit bearings per view
     obs_w: torch.Tensor         # (W, L, 2) observation weights (0 = none)
 
 
-def init_map_state(window: int, max_landmarks: int,
-                   device: torch.device | str | None = None) -> MapState:
+def init_map_state(window: int, max_landmarks: int, device: torch.device | str | None = None,
+                   descriptor: str = "brief") -> MapState:
     device = resolve(device)
     W, L = window, max_landmarks
     f32, i32 = torch.float32, torch.int32
@@ -65,7 +66,7 @@ def init_map_state(window: int, max_landmarks: int,
         head=torch.full((), -1, dtype=i32, device=device),
         n_kf=torch.zeros((), dtype=i32, device=device),
         lm_pos=torch.zeros((L, 3), dtype=f32, device=device),
-        lm_desc=torch.zeros((L, DESC_WORDS), dtype=i32, device=device),
+        lm_desc=desc_zeros(L, descriptor, device),
         lm_valid=torch.zeros((L,), dtype=torch.bool, device=device),
         lm_last_seen=torch.full((L,), -(10**6), dtype=i32, device=device),
         obs_rays=torch.zeros((W, L, 2, 3), dtype=f32, device=device),
@@ -81,10 +82,10 @@ def _top(scores: torch.Tensor, k: int):
 
 def insert_keyframe(m: MapState, T_world: torch.Tensor, feats: KeyframeFeatures,
                     frame_idx: torch.Tensor, max_new: int, match_max_distance: float = 80.0,
-                    match_ratio: float = 0.9) -> MapState:
+                    match_ratio: float = 0.9, metric: str = "hamming") -> MapState:
     """Add a keyframe: associate map landmarks, insert new ones, record obs.
-    Descriptors are 256-bit Hamming (the reference's SIFT/L2 metric is not
-    ported)."""
+    `metric` and `match_max_distance` are the descriptor family's
+    (`frontend.match.metric_params`)."""
     W = m.kf_X.shape[0]
     L = m.lm_pos.shape[0]
     new_head = torch.remainder(m.head + 1, W)
@@ -99,8 +100,8 @@ def insert_keyframe(m: MapState, T_world: torch.Tensor, feats: KeyframeFeatures,
     kf_frame = m.kf_frame.index_copy(0, h1, frame_idx.reshape(1).to(torch.int32))
 
     # --- data association: map landmarks -> current features (L x K) ---
-    mm = match_hamming(m.lm_desc, feats.desc, m.lm_valid, feats.valid,
-                       max_distance=match_max_distance, ratio=match_ratio)
+    mm = match_metric(metric, m.lm_desc, feats.desc, m.lm_valid, feats.valid,
+                      max_distance=match_max_distance, ratio=match_ratio)
     assoc = mm.valid                        # (L,) landmark l matched feature idx_b[l]
     f_of_l = mm.idx_b
 

@@ -4,7 +4,8 @@ counterpart of `sosvo/vo/loop_closure.py`).
   1. keyframes: the replay's own keyframe set, or a fixed stride;
   2. loop candidates: all keyframe pairs at least `min_gap` keyframes apart,
      or the top-M of them by pooled-descriptor similarity;
-  3. per pair: Hamming match of the two keyframes' stereo features,
+  3. per pair: a match of the two keyframes' stereo features (Hamming, or
+     L2 for SIFT's float descriptors),
      bearing-scored 3D-3D RANSAC, and a two-frame BA over the inliers;
      pairs with enough inliers become SE(3) edges weighted by inlier count;
   4. pose graph: odometry edges between consecutive keyframes plus the
@@ -66,9 +67,14 @@ def loop_pairs(n_kf: int, min_gap: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def keyframe_signatures(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(n_kf, 256) unit-norm appearance signatures: the mean +/-1 bit vector
-    over each keyframe's valid features."""
-    feat = unpack_bits_pm1(desc, dtype=torch.float32)            # (n_kf, K, 256)
+    """(n_kf, D) unit-norm appearance signatures over each keyframe's valid
+    features: binary words (int32 here, the reference's uint32) pool to the
+    mean +/-1 bit vector (D = 256), float descriptors (SIFT) to the mean
+    vector (D = 128)."""
+    if desc.is_floating_point():
+        feat = desc.to(torch.float32)                            # (n_kf, K, D)
+    else:
+        feat = unpack_bits_pm1(desc, dtype=torch.float32)        # (n_kf, K, 256)
     w = valid.to(torch.float32)[..., None]
     sig = torch.sum(feat * w, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1.0)
     return sig / torch.clamp_min(norm(sig, keepdim=True), 1e-9)

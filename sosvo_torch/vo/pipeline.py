@@ -1,7 +1,7 @@
 """The observation-mode VO pipeline (config c1): one step per frame, replayed
 over a sequence (counterpart of `sosvo/vo/pipeline.py`).
 
-Per frame: stereo Hamming match inside the azimuth band -> midpoint
+Per frame: stereo match inside the azimuth band -> midpoint
 triangulation -> temporal match against the previous frame -> rigid 3D-3D
 RANSAC -> Huber-IRLS bearing refinement -> the lazy essential gate.
 
@@ -19,8 +19,11 @@ Differences from the reference, all forced by eager PyTorch:
     `vo/batched.py`). The essential draw is made only for a lane whose
     gate runs, from that lane's generator, so each lane's random stream is
     the one its sequential replay draws.
-Every binary match goes through `sosvo_torch.kernels.match_cuda.
-match_hamming`: the CUDA kernel for CUDA tensors, its plain twin on CPU.
+Every match goes through `_match`, which takes the metric of the
+configured descriptor family (`frontend.match.metric_params`): binary words
+(BRIEF, AKAZE's M-LDB) through `sosvo_torch.kernels.match_cuda.
+match_hamming`, the CUDA kernel for CUDA tensors and its plain twin on CPU;
+float SIFT descriptors through the plain L2 matcher `match_l2`.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from sosvo_torch.backend.refine import refine_pose_bearings
 from sosvo_torch.geom.lie import geodesic_angle, mat_inv
 from sosvo_torch.geometry.ransac import gumbel, ransac_essential, ransac_rigid
 from sosvo_torch.geometry.triangulate import midpoint_triangulate
-from sosvo_torch.kernels.match_cuda import match_hamming
+from sosvo_torch.frontend.match import metric_params
+from sosvo_torch.kernels.match_cuda import match_metric
 from sosvo_torch.sensor.model import viewpoint
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
@@ -63,14 +67,10 @@ def azimuth_of(rays: torch.Tensor) -> torch.Tensor:
 
 def _match(cfg: PipelineConfig, desc_a, desc_b, valid_a, valid_b, az_a=None, az_b=None,
            band: float = 0.0):
-    if cfg.frontend.descriptor != "brief":
-        raise NotImplementedError(
-            f"descriptor={cfg.frontend.descriptor!r}: only the 256-bit Hamming "
-            "matcher is ported; the SIFT/L2 matcher is not")
-    return match_hamming(desc_a, desc_b, valid_a, valid_b,
-                         max_distance=cfg.frontend.match_max_distance,
-                         ratio=cfg.frontend.match_ratio,
-                         az_a=az_a, az_b=az_b, band=band)
+    """A match with the configured descriptor family's metric and threshold."""
+    metric, max_distance = metric_params(cfg.frontend)
+    return match_metric(metric, desc_a, desc_b, valid_a, valid_b, max_distance,
+                        cfg.frontend.match_ratio, az_a, az_b, band)
 
 
 def stereo_triangulate(rig: OmnistereoRig, obs: FrameObservations, cfg: PipelineConfig):

@@ -15,8 +15,19 @@ from typing import Any, NamedTuple
 
 import torch
 
+from sosvo_torch.frontend.descriptor import SIFT_DIM
 from sosvo_torch.synth.scene import DESC_WORDS
 from sosvo_torch.utils.device import resolve
+
+
+def desc_zeros(k: int, descriptor: str = "brief",
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """An empty descriptor buffer of the frontend's family: (k, DESC_WORDS)
+    int32 words for the binary descriptors (BRIEF, AKAZE's M-LDB), (k, 128)
+    float32 vectors for SIFT."""
+    if descriptor == "sift":
+        return torch.zeros((k, SIFT_DIM), dtype=torch.float32, device=resolve(device))
+    return torch.zeros((k, DESC_WORDS), dtype=torch.int32, device=resolve(device))
 
 
 class TrackState(NamedTuple):
@@ -24,7 +35,7 @@ class TrackState(NamedTuple):
 
     T_world: torch.Tensor       # (4, 4) world-from-rig pose of the current frame
     prev_points: torch.Tensor   # (K, 3) triangulated points in the previous rig frame
-    prev_desc: torch.Tensor     # (K, DESC_WORDS) int32 descriptors of those points
+    prev_desc: torch.Tensor     # (K, DESC_WORDS) int32 or (K, 128) f32 descriptors of those points
     prev_rays: torch.Tensor     # (K, 3) top-view unit rays of those points
     prev_azimuth: torch.Tensor  # (K,) azimuth (rad) of those rays
     prev_valid: torch.Tensor    # (K,) bool
@@ -47,7 +58,7 @@ class KeyframeFeatures(NamedTuple):
     """A frame's triangulated features, indexed by top-view slot."""
 
     pts_rig: torch.Tensor     # (K, 3)
-    desc: torch.Tensor        # (K, DESC_WORDS) int32
+    desc: torch.Tensor        # (K, DESC_WORDS) int32, or (K, 128) f32 (SIFT)
     ray_top: torch.Tensor     # (K, 3)
     ray_bottom: torch.Tensor  # (K, 3) matched bottom ray of each slot
     valid: torch.Tensor       # (K,) bool
@@ -55,14 +66,15 @@ class KeyframeFeatures(NamedTuple):
 
 def init_track_state(max_features: int, generator: torch.Generator,
                      T0: torch.Tensor | None = None,
-                     device: torch.device | str | None = None) -> TrackState:
+                     device: torch.device | str | None = None,
+                     descriptor: str = "brief") -> TrackState:
     device = resolve(device)
     k = max_features
     return TrackState(
         T_world=(torch.eye(4, dtype=torch.float32, device=device) if T0 is None
                  else T0.to(device=device, dtype=torch.float32)),
         prev_points=torch.zeros((k, 3), dtype=torch.float32, device=device),
-        prev_desc=torch.zeros((k, DESC_WORDS), dtype=torch.int32, device=device),
+        prev_desc=desc_zeros(k, descriptor, device),
         prev_rays=torch.zeros((k, 3), dtype=torch.float32, device=device),
         prev_azimuth=torch.zeros((k,), dtype=torch.float32, device=device),
         prev_valid=torch.zeros((k,), dtype=torch.bool, device=device),

@@ -365,11 +365,3 @@ def test_pyramid_and_steering_match(world):
         same_desc = (convert.desc_to_numpy(getattr(got, f"desc_{view}"))
                      == np.asarray(getattr(ref, f"desc_{view}"))).all(axis=1)
         assert same_desc[ray_ok].mean() >= 0.99
-
-
-@pytest.mark.parametrize("descriptor", ["sift", "akaze"])
-def test_unported_descriptors_raise(world, descriptor):
-    fe = _port_fe(dataclasses.replace(FE, descriptor=descriptor))
-    with pytest.raises(NotImplementedError, match=descriptor):
-        tif.extract_observations(world["trig"], world["tluts"], fe,
-                                 torch.tensor(world["images"][0]))

@@ -17,7 +17,8 @@ import sosvo_torch
 names = [m.name for m in pkgutil.walk_packages(sosvo_torch.__path__, "sosvo_torch.")]
 assert {"sosvo_torch.backend.pose_graph", "sosvo_torch.vo.loop_closure",
         "sosvo_torch.synth.render", "sosvo_torch.frontend.panorama", "sosvo_torch.frontend.detect",
-        "sosvo_torch.frontend.descriptor", "sosvo_torch.frontend.image_frontend",
+        "sosvo_torch.frontend.descriptor", "sosvo_torch.frontend.akaze",
+        "sosvo_torch.frontend.image_frontend",
         "sosvo_torch.vo.image_pipeline", "sosvo_torch.tools.frontend_parity",
         "sosvo_torch.vo.batched", "sosvo_torch.utils.framelog", "sosvo_torch.utils.checkpoint",
         "sosvo_torch.cli", "sosvo_torch.dist.mesh", "sosvo_torch.dist.launch",
@@ -37,5 +38,5 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # every module was walked, the loop-closure, image, batched and dist slices' too
-    assert int(out.stdout.strip()) >= 66
+    # every module was walked, the loop-closure, image, batched, dist and descriptor slices' too
+    assert int(out.stdout.strip()) >= 67

@@ -140,17 +140,6 @@ def test_port_garbage_input_fails_safely():
     assert bool(torch.isfinite(outs.T_world).all())
 
 
-def test_sift_descriptor_is_not_ported():
-    gen = torch.Generator().manual_seed(0)
-    rig = default_rig(device="cpu")
-    scene = make_scene(gen, 2, 512, device="cpu")
-    obs = observe_sequence(rig, scene, 64, gen)
-    cfg = PipelineConfig()
-    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, descriptor="sift"))
-    with pytest.raises(NotImplementedError, match="SIFT"):
-        run_replay(rig, cfg, init_track_state(64, gen, device="cpu"), obs)
-
-
 @pytest.mark.parametrize("preset", sorted(p.name for p in (ROOT / "configs").glob("*.json")))
 def test_presets_load_like_the_reference(preset):
     ref = dataclasses.asdict(jax_load_config(ROOT / "configs" / preset))
