@@ -110,7 +110,8 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
           extractor's host ms, device ms and device events per frame;
      14b. the Hamming kernel on frame 0's AKAZE descriptors, stereo in
           c2's band and temporal to frame 30: all four statistics equal
-          the plain version (max_abs_err 0.0), both timed;
+          the plain version (max_abs_err 0.0), both timed, and the
+          kernel's device us and device events per call (profiler);
      14c. c2 as written with descriptor="akaze", window BA, the command
           line's draws (as 7b): pose_ok 59/59, 15 keyframes, 70 Schur and
           2 x 60 + 15 + relocalisations matcher launches, ATE at most the
@@ -131,6 +132,24 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
           signatures) with the reference's pair draws: no matcher and 640
           Schur launches, a loop closed (the JAX package's rows close
           9-11), and ATE after the leg under its limit (as 14c);
+ 15. c2 as written (configs/c2_chip_ba.json) arriving as a staged capture:
+     the port renders the command line's room, the frames are written as
+     8-bit binary PGM files with the trajectory as a TUM file,
+     sosvo_torch/tools/stage_sequence.py stages them to .npz and .sosq
+     (frames equal to the quantised render exactly, through both) and
+     save_rig writes the default rig; `python -m sosvo_torch.cli --mode ba
+     --sequence` runs with and without `--rig` (two processes at once:
+     pose_ok equal, counts within 2 and positions within 1e-4 m, the rig
+     file's degrees round trip); in this process the command line's own
+     replay path and `live_vo_ba` over SosqReader (with the rig read from
+     the file too) equal the command line's trajectories bit for bit,
+     pose_ok 59/59, 15 keyframes, 70 Schur and 2 x 60 + 15 (+
+     relocalisations) matcher launches in the replay and in the live run,
+     ATE under the JAX package's worst plus twice the spread
+     (scripts/ref_sequence_ate.py: seeds 0-2 and seed 0 on shifted
+     renders); then live with the JAX command line's draws (host syncs per
+     live frame counted, `tools/sync_check.py`) and live frames/s against
+     the replay's;
  12. c5 as written (configs/c5_multihost.json: 100 frames, K=1024, H=512,
      W=8, L=4096, 32768 scene landmarks) over 8 ranks on the one card
      (`sosvo_torch/dist/launch.py`, gloo: NCCL takes one rank per card),
@@ -179,15 +198,16 @@ Each replay and each loop-closure leg resets the launch counts just before
 it and reads them just after (in each rank, for the ranks' paths); the
 kernels line's `launches` are those of phase 7c (c3 image-native: its BA
 replay plus its loop leg), phase 10 (c4 in both modes), phase 12, phase
-13's sharded leg (summed over the ranks) and phase 14's replays and leg,
-`launches_by_path` every path's. Each phase's wall time is printed.
+13's sharded leg (summed over the ranks), phase 14's replays and leg and
+phase 15's staged replay and live runs, `launches_by_path` every path's. Each phase's wall time is printed.
 `python3 chip_smoke.py --dist-only` runs the build and phases 12 (with
 12b), 13 and 11's torchrun runs alone, `--descriptors-only` the build and
-phase 14 alone; neither prints a result line. After phase 10, before
-phase 14, it counts each kernel's device events per call (profiler; 1
-each: one launch, no fills or copies): every profiler session runs before
-the phases that start processes of their own on the card (12, 13, 11).
-The phases run in the order 1-10, 14, 12, 13, 11. At the end it prints
+phase 14 alone, `--sequence-only` the build and phase 15 alone; none
+prints a result line. After phase 10, before phase 14, it counts each
+kernel's device events per call (profiler; 1 each: one launch, no fills or
+copies): every profiler session runs before the phases that start
+processes of their own on the card (15's command line, 12, 13, 11).
+The phases run in the order 1-10, 14, 15, 12, 13, 11. At the end it prints
 the card's name and power limit, one JSON line describing
 each kernel (with its route: the matcher's b1 tensor-core product, the
 Schur kernel's cluster size), and as the last line
@@ -1649,15 +1669,17 @@ def descriptor_frontend_phase(cfg, n_frames: int, device, results) -> None:
     SIFT_BIN_MOVE_L2 (card and CPU `atan2` differ in the last bit). Prints
     each extractor's host ms, device ms and device events per frame. 14b:
     the Hamming kernel against its plain version on frame 0's AKAZE
-    descriptors, stereo in c2's band and temporal to frame 30."""
+    descriptors, stereo in c2's band and temporal to frame 30, and its
+    device us and device events per call (profiler)."""
     import torch
     from sosvo_torch.frontend.akaze import hessian_response, nonlinear_scale_space
     from sosvo_torch.frontend.detect import gaussian_smooth, harris_response
     from sosvo_torch.frontend.image_frontend import build_frontend_luts, extract_observations
     from sosvo_torch.frontend.panorama import warp_panorama
     from sosvo_torch.sensor.rig import default_rig
+    from sosvo_torch.kernels.match_cuda import match_stats_cuda
     from sosvo_torch.tools.frontend_parity import slot_mismatches, view_keypoints
-    from sosvo_torch.tools.profile_replay import timed_and_profiled
+    from sosvo_torch.tools.profile_replay import _device_us_per_call, timed_and_profiled
     from sosvo_torch.tools.workload import render_frames
     from sosvo_torch.vo.pipeline import azimuth_of, stereo_triangulate
 
@@ -1744,6 +1766,16 @@ def descriptor_frontend_phase(cfg, n_frames: int, device, results) -> None:
             check(results["c2_akaze_stereo"]["max_abs_err"] == 0.0
                   and results["c2_akaze_temporal"]["max_abs_err"] == 0.0,
                   "the matcher on AKAZE descriptors differs from its plain version")
+            # device us and device events per call (profiler, 50 calls after a warm-up)
+            for label, args, band in (
+                    ("stereo", (f0.desc_top, f0.desc_bottom, f0.valid_top, f0.valid_bottom,
+                                azimuth_of(f0.ray_top), azimuth_of(f0.ray_bottom)),
+                     fe.stereo_band_rad),
+                    ("temporal", (f0.desc_top, f1.desc_top, valid0, valid1, None, None), 0.0)):
+                us, ev, _ = _device_us_per_call(lambda: match_stats_cuda(*args, band=band))
+                results[f"c2_akaze_{label}"].update(device_us=us, device_events_per_call=ev)
+                print(f"kernel_device c2_akaze_{label}: device_us_per_call={us} "
+                      f"device_events_per_call={ev} (profiler, 50 calls)", flush=True)
 
 
 def descriptor_cli_phase(cfg_path: Path, descriptor: str, device_args=()) -> None:
@@ -1831,6 +1863,238 @@ def descriptor_phase(device, results, configs: Path = ROOT / "configs", device_a
     return launches
 
 
+# The JAX package's ATE (m) of c2 as a staged 8-bit capture, on the CPU
+# (scripts/ref_sequence_ate.py): seeds 0-2, then seed 0 on the sequence
+# rendered with every pose shifted by +0.1, -0.1, +0.3 and -0.3 um along x
+# (the render's rounding moves the ATE far more than the seed). Phase 15
+# holds the port's staged c2 to the worst plus twice the spread.
+SEQUENCE_REF_ATE_M = (0.014038382098078728, 0.013891639187932014, 0.013605513609945774,
+                      0.014834532514214516, 0.009176318533718586, 0.014847947284579277,
+                      0.008685383945703506)
+
+
+def sequence_phase(device, configs: Path = ROOT / "configs", device_args=()) -> dict:
+    """15: c2 as written (configs/c2_chip_ba.json: 60 frames, 768x768, K=512,
+    W=5, L=512) arriving as a staged capture. The port renders the command
+    line's room along its trajectory, the frames are written as 8-bit
+    binary PGM files (`(clip(im, 0, 1) * 255).astype(uint8)`) with the
+    trajectory as a TUM file, `tools/stage_sequence.py` stages them to
+    `.npz` and `.sosq` (the staged frames must equal the quantised render
+    exactly, through both), and `save_rig` writes the default rig's file.
+    Then, in build/chip_smoke_sequence (gitignored):
+      * `python -m sosvo_torch.cli --mode ba --sequence` with and without
+        `--rig`, two processes at once: every frame tracked in both, the
+        same report keys and frames. The two runs are not the same rig:
+        a rig file stores elevations in degrees (the JAX package's
+        schema), and read back three of default_rig's four bounds come out
+        one f32 step apart, in either package; that moves panorama samples
+        by rounding and keypoints and inliers across their thresholds, so
+        the trajectories part by millimetres (their differences are
+        printed). Each run is held bit for bit to this process's replay or
+        live run on the rig it read, below;
+      * in this process the command line's own path (`cli._load_sequence`,
+        then `run_replay_ba` from its generator, SEED + 2) and `live_vo_ba`
+        over `SosqReader` with that generator, and with the rig read from
+        the file: each trajectory equal, bit for bit, to the command line
+        run on the same rig; pose_ok 59/59, 15 keyframes, 70 Schur and 135
+        (+ relocalisations) matcher launches in the replay and the live
+        run; ATE under the JAX package's worst plus twice the spread
+        (scripts/ref_sequence_ate.py);
+      * `live_vo_ba` with the JAX command line's draws (`key`, PRNGKey(2))
+        under `tools/sync_check.syncs_during`: host syncs per live frame,
+        and its ATE against the JAX package's seed 0 (held under the limit);
+      * live frames/s against the replay's (each from its file to the
+        trajectory, host clock, synchronised) on the same 60 frames.
+    Returns {path: (matcher launches, Schur launches)}."""
+    import shutil
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from sosvo_torch import cli as port_cli
+    from sosvo_torch.data.native_loader import SosqReader
+    from sosvo_torch.data.sequence import load_sequence, load_tum_trajectory, save_tum_trajectory
+    from sosvo_torch.eval.ate import ate_rmse
+    from sosvo_torch.kernels import match_cuda, schur_cuda
+    from sosvo_torch.sensor.calib_io import load_rig, save_rig
+    from sosvo_torch.sensor.rig import default_rig
+    from sosvo_torch.synth.scene import make_trajectory
+    from sosvo_torch.tools import stage_sequence
+    from sosvo_torch.tools.reference_draws import CLI_REPLAY_SEED, prng_key
+    from sosvo_torch.tools.sync_check import syncs_during
+    from sosvo_torch.tools.workload import SEED, TRAJECTORY_RADIUS, render_frames
+    from sosvo_torch.utils.config import load_pipeline_config
+    from sosvo_torch.vo.ba_pipeline import init_ba_state, run_replay_ba
+    from sosvo_torch.vo.live import live_vo_ba
+
+    preset = configs / "c2_chip_ba.json"
+    cfg = load_pipeline_config(preset)
+    n = json.loads(preset.read_text())["run"]["n_frames"]
+    limit = max(SEQUENCE_REF_ATE_M) + 2.0 * (max(SEQUENCE_REF_ATE_M) - min(SEQUENCE_REF_ATE_M))
+    work = ROOT / "build" / "chip_smoke_sequence"
+    shutil.rmtree(work, ignore_errors=True)
+    capture = work / "capture"
+    capture.mkdir(parents=True)
+
+    # the capture: 8-bit PGM frames of the port's render, the trajectory as TUM
+    t0 = time.perf_counter()
+    rig = default_rig(device=device)
+    size = rig.image_height
+    images = render_frames(rig, n, range(n), device).cpu().numpy()
+    quantised = (np.clip(images, 0, 1) * 255).astype(np.uint8)
+    for i, im in enumerate(quantised):
+        (capture / f"frame_{i:04d}.pgm").write_bytes(f"P5\n{size} {size}\n255\n".encode()
+                                                     + im.tobytes())
+    save_tum_trajectory(capture / "gt.txt",
+                        make_trajectory(n, radius=TRAJECTORY_RADIUS, device=device).cpu().numpy())
+    capture_s = time.perf_counter() - t0
+    bundle, stream, rig_file = work / "c2.npz", work / "c2.sosq", work / "rig.json"
+    t0 = time.perf_counter()
+    check(stage_sequence.main([str(capture), str(bundle), "--gt", str(capture / "gt.txt"),
+                               "--sosq", str(stream), "--size", str(size)]) == 0,
+          "sequence: the stager failed")
+    stage_s = time.perf_counter() - t0
+    staged = quantised.astype(np.float32) / 255.0
+    seq = load_sequence(bundle)
+    check(seq.images.shape == (n, size, size) and np.array_equal(seq.images, staged),
+          "sequence: the .npz frames differ from the quantised render")
+    check(np.array_equal(seq.poses, load_tum_trajectory(capture / "gt.txt")[1]),
+          "sequence: the .npz poses differ from the TUM file's")
+    with SosqReader(stream) as reader:
+        check(len(reader) == n and all(np.array_equal(reader.next(), staged[i]) for i in range(n)),
+              "sequence: the .sosq frames differ from the quantised render")
+    save_rig(rig_file, rig)
+    print(f"sequence c2: {n} frames rendered on the card, written as 8-bit PGM "
+          f"({capture_s:.2f} s) and staged to .npz and .sosq ({stage_s:.2f} s, host clock): "
+          f"frames equal to the quantised render through both, poses to the TUM file's",
+          flush=True)
+
+    # the command line, with and without --rig, two processes at once
+    runs = {"default_rig": (), "rig_file": ("--rig", str(rig_file))}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "sosvo_torch.cli", "--config", str(preset), "--mode", "ba",
+         "--sequence", str(bundle), "--out", str(work / name), *device_args, *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for name, extra in runs.items()}
+    for name, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"sequence cli {name}: exit code {proc.returncode}: "
+                                    f"{err[-3000:]}")
+    cli_s = time.perf_counter() - t0
+    rep = {k: json.loads((work / k / "report.json").read_text()) for k in runs}
+    rows = {k: [json.loads(x) for x in (work / k / "frames.jsonl").read_text().splitlines()]
+            for k in runs}
+    traj = {k: np.load(work / k / "ckpt" / f"traj_{n:08d}.npy") for k in runs}
+    a, b = rep["default_rig"], rep["rig_file"]
+    check(set(a) == set(b) and a["frames"] == b["frames"] == n and a["mode"] == "ba",
+          f"sequence cli: reports {a} and {b}")
+    pos_err = max(abs(x - y) for ra, rb in zip(rows["default_rig"], rows["rig_file"])
+                  for x, y in zip(ra["pos"], rb["pos"]))
+    counts = ("n_stereo", "n_temporal", "n_inliers")
+    count_err = max(abs(ra[k] - rb[k]) for ra, rb in zip(rows["default_rig"], rows["rig_file"])
+                    for k in counts)
+    check(all([r["frame"] for r in rows[k]] == list(range(n)) for k in runs),
+          "sequence cli: the logs' frames")
+    check(all(r["pose_ok"] for k in runs for r in rows[k][1:]), "sequence cli: a frame lost")
+    check(all(rep[k]["ate_rmse_m"] <= limit for k in runs),
+          f"sequence cli: ATE {a['ate_rmse_m']} / {b['ate_rmse_m']} m above {limit}")
+    bit_equal = (work / "default_rig" / "frames.jsonl").read_bytes() == \
+        (work / "rig_file" / "frames.jsonl").read_bytes()
+    print(f"sequence cli: both runs {cli_s:.1f} s (two processes at once, host clock); "
+          f"--rig (the default rig's file) vs none: pose_ok on every frame in both, counts at "
+          f"most {count_err} apart, frames.jsonl {'identical' if bit_equal else 'not byte-equal'}, "
+          f"max position difference {pos_err:.3e} m (the file's degrees round trip), ATE "
+          f"{a['ate_rmse_m']} / {b['ate_rmse_m']} m (limit {limit}); reports {json.dumps(a)} "
+          f"{json.dumps(b)}", flush=True)
+
+    # in this process: the command line's replay path, then live over the stream
+    T0 = torch.from_numpy(seq.poses[0]).to(device)
+    gt = torch.from_numpy(seq.poses).to(device)
+
+    def staged_replay():
+        r, _, obs = port_cli._load_sequence(str(bundle), None, cfg, device, 64)
+        state = init_ba_state(cfg, torch.Generator(device=device).manual_seed(SEED + 2), T0=T0,
+                              device=device)
+        return run_replay_ba(r, cfg, state, obs)[1]
+
+    def live(rig_, **kw):
+        with SosqReader(stream) as reader:
+            frames = (reader.next() for _ in range(len(reader)))
+            outs = [o for _, o in live_vo_ba(rig_, cfg, frames, T0=T0, device=device, **kw)]
+        return outs
+
+    def counted(fn):
+        match_cuda.reset_launches()
+        schur_cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (match_cuda.launches, schur_cuda.launches)
+
+    def stacked(outs):
+        return (torch.stack([o.vo.T_world for o in outs]), torch.stack([o.vo.pose_ok for o in outs]),
+                torch.stack([o.is_keyframe for o in outs]), torch.stack([o.reloc_tried for o in outs]))
+
+    replay_out, replay_m = counted(staged_replay)
+    results = {"c2_staged_replay": (replay_out.vo.T_world, replay_out.vo.pose_ok,
+                                    replay_out.is_keyframe, replay_out.reloc_tried)}
+    launches = {"c2_staged_replay": replay_m}
+    for name, rig_, key in (("c2_live_ba", rig, None),
+                            ("c2_live_ba_rig_file", load_rig(rig_file, device=device), None)):
+        outs, m = counted(lambda: live(rig_, generator=torch.Generator(device=device)
+                                       .manual_seed(SEED + 2)))
+        results[name], launches[name] = stacked(outs), m
+    check(torch.equal(results["c2_staged_replay"][0], results["c2_live_ba"][0]),
+          "sequence: live_vo_ba's trajectory differs from the staged replay's")
+    for name, run in (("c2_staged_replay", "default_rig"), ("c2_live_ba", "default_rig"),
+                      ("c2_live_ba_rig_file", "rig_file")):
+        check(np.array_equal(results[name][0].cpu().numpy(), traj[run]),
+              f"sequence: {name}'s trajectory differs from the command line's ({run})")
+    want_kf = (n + cfg.keyframe_every - 1) // cfg.keyframe_every
+    for name, (T, ok, kf, reloc) in results.items():
+        n_ok, n_kf, n_reloc = int(ok[1:].sum()), int(kf.sum()), int(reloc.sum())
+        m, s = launches[name]
+        rmse = float(ate_rmse(T[1:, :3, 3], gt[1:, :3, 3])[0])
+        check(n_ok == n - 1 and n_kf == want_kf, f"sequence {name}: pose_ok {n_ok}/{n - 1}, "
+                                                 f"{n_kf} keyframes")
+        check(s == (want_kf - 1) * cfg.ba.iters and m == 2 * n + n_kf + n_reloc,
+              f"sequence {name}: {m} matcher and {s} Schur launches")
+        check(rmse <= limit, f"sequence {name}: ATE {rmse} m above the JAX reference's {limit}")
+        print(f"sequence {name}: pose_ok={n_ok}/{n - 1} keyframes={n_kf} relocalisations="
+              f"{n_reloc} matcher_launches={m} schur_launches={s} ATE_m={rmse} (limit {limit}: "
+              f"JAX staged c2 worst {max(SEQUENCE_REF_ATE_M)} + twice the spread)", flush=True)
+    print("sequence: live_vo_ba over SosqReader = the staged replay = the command line, bit for "
+          "bit, on the default rig; live on the rig file's rig = the command line with --rig",
+          flush=True)
+
+    # the JAX command line's draws, with the syncs counted
+    outs, syncs = syncs_during(lambda: live(rig, key=prng_key(CLI_REPLAY_SEED)))
+    T, ok, kf, _ = stacked(outs)
+    rmse_jax = float(ate_rmse(T[1:, :3, 3], gt[1:, :3, 3])[0])
+    check(int(ok[1:].sum()) == n - 1 and rmse_jax <= limit,
+          f"sequence live with the JAX draws: pose_ok {int(ok[1:].sum())}, ATE {rmse_jax}")
+    where = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in syncs})
+    print(f"sequence live_vo_ba, JAX draws PRNGKey(2): ATE_m={rmse_jax} (JAX seed 0 "
+          f"{SEQUENCE_REF_ATE_M[0]}: {rmse_jax - SEQUENCE_REF_ATE_M[0]:+.3e}) "
+          f"host_syncs={len(syncs)} per_frame={len(syncs) / n} at {where}", flush=True)
+
+    # live frames/s against the replay's, each from its file, in turns
+    times = {"replay": [], "live": []}
+    for which in ("replay", "live", "live", "replay"):
+        t0 = time.perf_counter()
+        staged_replay() if which == "replay" else live(
+            rig, generator=torch.Generator(device=device).manual_seed(SEED + 2))
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+    fps = {k: n / min(v) for k, v in times.items()}
+    print(f"sequence frames_per_s (host clock, {n} frames, best of 2 in turns): live "
+          f"{fps['live']} (SosqReader -> pinned upload -> image_step_ba) replay {fps['replay']} "
+          f"(.npz load -> upload -> extract all -> run_replay_ba); live/replay "
+          f"{fps['live'] / fps['replay']}", flush=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1877,6 +2141,11 @@ def main() -> int:
         descriptor_phase(device, {})
         phase_done("14_descriptors")
         print("chip_smoke: --descriptors-only run ends here, with no result line", flush=True)
+        return 0
+    if sys.argv[1:] == ["--sequence-only"]:  # phase 15 alone
+        sequence_phase(device)
+        phase_done("15_sequence")
+        print("chip_smoke: --sequence-only run ends here, with no result line", flush=True)
         return 0
     if sys.argv[1:] == ["--dist-only"]:  # phases 12, 12b, 13 and 11's ranks alone
         c5_phase(device, {}, {})
@@ -2066,6 +2335,12 @@ def main() -> int:
     launches.update({k: m for k, (m, _) in desc_launches.items()})
     phase_done("14_descriptors")
 
+    # 15. c2 as a staged capture: the stager, the command line's --sequence
+    # and --rig, live_vo_ba over the .sosq stream
+    seq_launches = sequence_phase(device)
+    launches.update({k: m for k, (m, _) in seq_launches.items()})
+    phase_done("15_sequence")
+
     # 12. c5 as written: 8 ranks on the card, every window solve landmark-sharded
     c5_m = c5_phase(device, results, schur)
     launches["c5_sharded_replay"] = c5_m["match"]
@@ -2092,7 +2367,8 @@ def main() -> int:
          "source": "sosvo_torch/csrc/match_hamming.cu",
          "replaces": "sosvo/kernels/match_pallas.py:162",
          "launches": c3i_m + leg_c3i_m + c4_f2f_m + c4_ba_m + c5_m["match"]
-         + c3l["sharded_leg"]["match"] + sum(m for m, _ in desc_launches.values()),
+         + c3l["sharded_leg"]["match"] + sum(m for m, _ in desc_launches.values())
+         + sum(m for m, _ in seq_launches.values()),
          "launches_by_path": launches,
          "max_abs_err": max(r["max_abs_err"] for r in (*results.values(), loop_match)),
          "ms": m_main["ms"], "plain_ms": m_main["plain_ms"], "bound_ms": m_main["bound_ms"],
@@ -2112,7 +2388,8 @@ def main() -> int:
          "source": "sosvo_torch/csrc/schur_reduce.cu",
          "replaces": "sosvo/kernels/schur_pallas.py:106",
          "launches": c3i_s + leg_c3i_s + c4_f2f_s + c4_ba_s + c5_m["schur"]
-         + c3l["sharded_leg"]["schur"] + sum(s_ for _, s_ in desc_launches.values()),
+         + c3l["sharded_leg"]["schur"] + sum(s_ for _, s_ in desc_launches.values())
+         + sum(s_ for _, s_ in seq_launches.values()),
          "launches_by_path": {"c2_ba_observations": c2_s, "c3_sizes_ba_observations": c3_s,
                               "c2_ba_dropout": drop_s, "c3_pgo_leg_ba": leg_ba_s,
                               "c3_pgo_leg_f2f": leg_f2f_s, "c2_ba_images": c2i_s,
@@ -2124,7 +2401,8 @@ def main() -> int:
                               "c3_long_mesh_leg_sharded": c3l["sharded_leg"]["schur"],
                               "c3_long_mesh_ba": c3l["ba_replay"]["schur"],
                               "c3_long_mesh_ba_leg": c3l["ba_leg"]["schur"],
-                              **{k: s_ for k, (_, s_) in desc_launches.items()}},
+                              **{k: s_ for k, (_, s_) in desc_launches.items()},
+                              **{k: s_ for k, (_, s_) in seq_launches.items()}},
          "max_abs_err": max(r["max_abs_err"] for r in (*schur.values(), loop_schur)),
          "ms": s_main["ms"], "plain_ms": s_main["plain_ms"], "bound_ms": s_main["bound_ms"],
          "bound_us": s_main["bound_ms"] * 1e3, "bound_by": s_main["bound_by"],

@@ -48,11 +48,19 @@ checkpoint and writes the same log as an uninterrupted run.
     min(pgo_shards, D) ranks close the loops (`dist/c3_dist.py`).
   Rank 0 writes the report, the log and the checkpoints, and every rank
   resumes from them; `--fault-inject` ends every rank.
+* `--sequence BUNDLE` (a `.npz` from `tools/stage_sequence.py` or the JAX
+  package's `scripts/stage_sequence.py`): the bundle's square frames
+  instead of the synthetic world, through the frontend (image mode), with
+  the rig of `--rig FILE` (`sensor/calib_io.py`) or `default_rig` at the
+  frames' size; the bundle's ground-truth poses give the first pose and
+  the ATE, and without them the replay starts at identity and the report's
+  ATE and RPE are null.
 The random streams are the port's own seeded generators, so its ATE is
 compared with the JAX package's by limits, not digit for digit.
 Options of the JAX command line that are not ported raise
 NotImplementedError naming their ROADMAP.md item; `--pgo` or the image
-source with the batched replay raise ValueError. None is ignored.
+source (`--sequence` too) with the batched replay raise ValueError, and so
+does `--rig` without `--sequence`. None is ignored.
 """
 
 from __future__ import annotations
@@ -70,8 +78,6 @@ import numpy as np
 # Options the port does not run yet, with the ROADMAP.md item that ports them.
 SIDE = "ROADMAP.md section 1, item 'Side modules'"
 NOT_PORTED = {
-    "sequence": f"staged captures (data/sequence.py): {SIDE}",
-    "rig": f"rig calibration files (sensor/calib_io.py): {SIDE}",
     "viz": f"plots and viewers (eval/plots, viz, html_viewer): {SIDE}",
 }
 
@@ -80,10 +86,12 @@ def _refuse_unported(args, cfg) -> None:
     """Raise, before anything runs, for an option the port does not run:
     NotImplementedError for what is not ported yet, ValueError for what the
     batched replay does not run (in the JAX package neither)."""
-    for flag in ("sequence", "rig", "viz"):
+    for flag in NOT_PORTED:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported to sosvo_torch "
                                       f"yet: {NOT_PORTED[flag]}")
+    if args.rig and not args.sequence:
+        raise ValueError("--rig is the rig of a staged capture: pass it with --sequence")
     if cfg.frontend.descriptor == "sift" and _source(args, cfg) != "images":
         raise ValueError("frontend.descriptor 'sift' describes images: run it in image mode "
                          "(--source images or pipeline.mode 'images'); observation mode's "
@@ -102,7 +110,13 @@ def _refuse_unported(args, cfg) -> None:
 
 
 def _source(args, cfg) -> str:
+    if args.sequence:
+        return "images"
     return args.source or ("images" if cfg.mode == "images" else "obs")
+
+
+def _round(x: float | None) -> float | None:
+    return None if x is None else round(x, 6)
 
 
 def _clamp(want: int, world: int, total: int) -> int:
@@ -111,6 +125,38 @@ def _clamp(want: int, world: int, total: int) -> int:
     while total % n:
         n -= 1
     return n
+
+
+def _load_sequence(path: str, rig_path: str | None, cfg, device, chunk: int):
+    """(rig, ground-truth poses or None, observations) of a staged capture:
+    its square frames extracted on `device`, `chunk` frames at a time, with
+    the rig of `rig_path` or the default rig at the frames' size."""
+    import torch
+
+    from sosvo_torch.data.sequence import load_sequence
+    from sosvo_torch.frontend.image_frontend import build_frontend_luts, extract_sequence
+    from sosvo_torch.sensor.calib_io import load_rig
+    from sosvo_torch.sensor.rig import default_rig
+    from sosvo_torch.synth.scene import FrameObservations
+
+    seq = load_sequence(path)
+    if seq.images is None:
+        raise ValueError(f"{path} has no image frames")
+    n, h, w = seq.images.shape
+    if h != w:
+        raise ValueError(f"{path}: omni frames must be square, not {h}x{w}")
+    rig = load_rig(rig_path, device=device) if rig_path else default_rig(image_size=h,
+                                                                          device=device)
+    if (rig.image_height, rig.image_width) != (h, w):
+        raise ValueError(f"the rig is for {rig.image_height}x{rig.image_width} images, "
+                         f"{path} holds {h}x{w}")
+    luts = build_frontend_luts(rig, cfg.frontend)
+    parts = [extract_sequence(rig, luts, cfg.frontend,
+                              torch.from_numpy(seq.images[f0:f0 + chunk]).to(device))
+             for f0 in range(0, n, chunk)]
+    obs = FrameObservations(*(torch.cat(x) for x in zip(*parts)))
+    gt = None if seq.poses is None else torch.from_numpy(seq.poses).to(device)
+    return rig, gt, obs
 
 
 def main(argv=None) -> int:
@@ -130,8 +176,13 @@ def main(argv=None) -> int:
                     help="pose-graph loop closing at the end (or set pipeline.pose_graph)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the replay runs; cuda fails without a card")
-    ap.add_argument("--sequence", default=None, help="not ported yet")
-    ap.add_argument("--rig", default=None, help="not ported yet")
+    ap.add_argument("--sequence", default=None,
+                    help="replay a staged capture (.npz from tools/stage_sequence.py: image "
+                         "files and optional TUM ground truth) instead of the synthetic world; "
+                         "implies --source images")
+    ap.add_argument("--rig", default=None,
+                    help="rig calibration JSON (sensor/calib_io.py) for --sequence; default: "
+                         "the built-in rig at the sequence's image size")
     ap.add_argument("--verify-sharded", action="store_true",
                     help="with dist.model_parallel > 1: replay once more on one device and "
                          "report the largest pose difference")
@@ -201,6 +252,7 @@ def main(argv=None) -> int:
     state_gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rig = default_rig(device=device)
     gt = obs = None
+    gt_available = True
 
     if not replays:
         pass  # this rank joins the loop-closing leg only
@@ -226,7 +278,13 @@ def main(argv=None) -> int:
         obs_all, obs = obs, shard_batched_inputs(replay_mesh, None, obs)[1]
         slice_obs = lambda f, hi: FrameObservations(*(x[:, f:hi] for x in obs))  # noqa: E731
     else:
-        if source == "images":
+        if args.sequence:
+            rig, gt, obs = _load_sequence(args.sequence, args.rig, cfg, device,
+                                          int(run.get("render_chunk", 64)))
+            n_frames, gt_available = obs.desc_top.shape[0], gt is not None
+            if not gt_available:  # identity poses: the first pose, and no ATE
+                gt = torch.eye(4, dtype=torch.float32, device=device).repeat(n_frames, 1, 1)
+        elif source == "images":
             t_extract0 = time.perf_counter()
             rig, gt, _, _, obs = make_image_workload(cfg, n_frames, device,
                                                      chunk=int(run.get("render_chunk", 64)),
@@ -358,17 +416,19 @@ def main(argv=None) -> int:
         ates = [ate(T_est[s], gt[s]) for s in range(S)]
         rmse = float(np.sqrt(np.mean(np.square(ates))))
         t_rpe, r_rpe = rpes(T_est[0], gt[0])
-    else:
+    elif gt_available:
         rmse = ate(T_est, gt)
         t_rpe, r_rpe = rpes(T_est, gt)
+    else:  # a staged capture without ground truth: no ATE or RPE
+        rmse = t_rpe = r_rpe = None
     done = n_frames - start_frame
 
     report = {
         "config": args.config,
         "frames": done,
-        "ate_rmse_m": round(rmse, 6),
-        "rpe_t_m": round(t_rpe, 6),
-        "rpe_r_rad": round(r_rpe, 6),
+        "ate_rmse_m": _round(rmse),
+        "rpe_t_m": _round(t_rpe),
+        "rpe_r_rad": _round(r_rpe),
         "frames_per_s": round(done * S / wall, 2) if wall else 0.0,
         "wall_s": round(wall, 2),
         "mode": f"batched-{args.mode}" if batched else args.mode,
@@ -376,7 +436,7 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "world": ranks.world,
     }
-    if n_loops:
+    if n_loops and gt_available:
         report["ate_rmse_vo_m"] = round(ate(T_vo, gt), 6)
         report["pgo_wall_s"] = round(pgo_wall, 2)
         if cfg.dist.pgo_shards > 1:
@@ -398,7 +458,8 @@ def main(argv=None) -> int:
             sync()
             report["sharded_vs_single_max_pose_diff"] = float(
                 torch.max(torch.abs(T_vo - outs_1.vo.T_world)))
-            report["ate_rmse_single_device"] = round(ate(outs_1.vo.T_world, gt), 6)
+            report["ate_rmse_single_device"] = _round(ate(outs_1.vo.T_world, gt)
+                                                      if gt_available else None)
     (out / "report.json").write_text(json.dumps(report, indent=2))
     print(json.dumps(report))
     dmesh.shutdown()

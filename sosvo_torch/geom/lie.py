@@ -78,20 +78,55 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     return rt_to_mat(R, t)
 
 
-def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
+def _sqrt_rounded(x: torch.Tensor) -> torch.Tensor:
+    """f32 square root rounded correctly (through float64), as XLA's is;
+    torch's vectorised CPU sqrt can be one f32 step off."""
+    return torch.sqrt(x.double()).float()
+
+
+def _unit_xla(q: torch.Tensor) -> torch.Tensor:
+    """`q` over its norm, rounded as the JAX package's compiled CPU code
+    rounds it: the squared norm takes one fused multiply-add per term (each
+    emulated in float64 and rounded to f32 once), the root is correctly
+    rounded. A quaternion normalised here carries the reference's bits."""
+    wide = q.double()
+    sq = (wide[..., 0] * wide[..., 0]).float()
+    for i in range(1, q.shape[-1]):
+        sq = (wide[..., i] * wide[..., i] + sq.double()).float()
+    return q / torch.clamp_min(_sqrt_rounded(sq)[..., None], _EPS)
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix; `q` is normalised
+    first, as the reference rounds it (`_unit_xla`)."""
+    q = _unit_xla(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
+def mat_to_quat(R: torch.Tensor, xla_rounding: bool = False) -> torch.Tensor:
     """Rotation matrix -> unit quaternion (w, x, y, z), branch-free (Shepperd).
 
     All four candidate quaternions are formed and the one keyed by the
     largest of (trace, m00, m11, m22) is gathered (the first on ties, as
-    `jnp.argmax`); the sign is canonicalised to w >= 0.
+    `jnp.argmax`); the sign is canonicalised to w >= 0. `xla_rounding`
+    takes every root and the norm as the JAX package's CPU code rounds
+    them (`_sqrt_rounded`, `_unit_xla`): the TUM writer's choice, whose
+    text is compared with the reference's.
     """
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     tr = m00 + m11 + m22
 
+    root = _sqrt_rounded if xla_rounding else torch.sqrt
+
     def safe_sqrt(x):
-        return torch.sqrt(torch.clamp_min(x, _EPS))
+        return root(torch.clamp_min(x, _EPS))
 
     s0 = safe_sqrt(tr + 1.0) * 2.0
     q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1)
@@ -105,7 +140,7 @@ def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
     qs = torch.stack([q0, q1, q2, q3], dim=-2)
     q = torch.gather(qs, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
-    q = q / torch.clamp_min(norm(q, keepdim=True), _EPS)
+    q = _unit_xla(q) if xla_rounding else q / torch.clamp_min(norm(q, keepdim=True), _EPS)
     return q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
 
 

@@ -108,20 +108,27 @@ def batched_replay_draws(n_lanes: int, n_frames: int, n_hyps: int, k: int, devic
 
 def replay_draws_from_key(key: Key, n_frames: int, n_hyps: int, k: int, device,
                           reloc_slots: int | None = None) -> StepDraws:
-    """The per-frame RANSAC draws of the JAX package's replay from `key`,
-    stacked over frames: each frame splits its key into (next key, rigid,
-    essential) and draws (H, K) Gumbel matrices; with `reloc_slots` L, also
-    relocalisation's (H, L) matrix from the next key folded with RELOC_FOLD
-    (the BA replay's)."""
-    rigid, ess, reloc = [], [], []
+    """The per-frame RANSAC draws of the JAX package's replay from `key`
+    (`frame_draws` frame after frame), stacked over frames."""
+    frames = []
     for _ in range(n_frames):
-        key, k_rigid, k_ess = split(key, 3)
-        rigid.append(gumbel(k_rigid, (n_hyps, k), device))
-        ess.append(gumbel(k_ess, (n_hyps, k), device))
-        if reloc_slots is not None:
-            reloc.append(gumbel(fold_in(key, RELOC_FOLD), (n_hyps, reloc_slots), device))
-    return StepDraws(torch.stack(rigid), torch.stack(ess),
-                     torch.stack(reloc) if reloc_slots is not None else None)
+        key, d = frame_draws(key, n_hyps, k, device, reloc_slots)
+        frames.append(d)
+    return StepDraws(*(None if x[0] is None else torch.stack(x) for x in zip(*frames)))
+
+
+def frame_draws(key: Key, n_hyps: int, k: int, device, reloc_slots: int | None = None
+                ) -> tuple[Key, StepDraws]:
+    """One frame's draws of the JAX package's step from its state's `key`:
+    the key splits into (next key, rigid, essential), each of the last two
+    draws an (H, K) Gumbel matrix; with `reloc_slots` L, also
+    relocalisation's (H, L) matrix from the next key folded with RELOC_FOLD
+    (the BA step's). Returns (next key, draws)."""
+    key, k_rigid, k_ess = split(key, 3)
+    reloc = None if reloc_slots is None else \
+        gumbel(fold_in(key, RELOC_FOLD), (n_hyps, reloc_slots), device)
+    return key, StepDraws(gumbel(k_rigid, (n_hyps, k), device), gumbel(k_ess, (n_hyps, k), device),
+                          reloc)
 
 
 def loop_draws(n_pairs: int, n_hyps: int, k: int, device) -> torch.Tensor:

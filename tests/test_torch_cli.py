@@ -6,7 +6,9 @@ equals the uninterrupted one bit for bit (the lanes' random streams are
 part of the state). The command line runs at the reference test's tiny
 sizes (K=128, H=128): a killed run resumed writes the uninterrupted run's
 `frames.jsonl` byte for byte, with PGO its report's loops and ATE, and the
-batched branch runs in both modes. Options that are not ported raise.
+batched branch runs in both modes. A staged capture (`--sequence`, with and
+without `--rig`) replays as the JAX command line replays it. Options that
+are not ported, or that the run cannot take, raise.
 The command line over several ranks: tests/test_torch_dist_cli.py.
 """
 
@@ -175,7 +177,9 @@ NOT_BATCHED = (ValueError, "non-batched only")
 
 
 @pytest.mark.parametrize("extra, pipeline, error", [
-    (["--sequence", "capture.npz"], {}, NOT_PORTED), (["--rig", "rig.json"], {}, NOT_PORTED),
+    (["--sequence", "capture.npz"], {"dist": {"data_parallel": 2}},
+     (ValueError, "observation-mode")),
+    (["--rig", "rig.json"], {}, (ValueError, "with --sequence")),
     (["--viz"], {}, NOT_PORTED),
     (["--pgo"], {"dist": {"data_parallel": 2}}, NOT_BATCHED),
     ([], {"dist": {"data_parallel": 2}, "pose_graph": True}, NOT_BATCHED),
@@ -186,9 +190,10 @@ NOT_BATCHED = (ValueError, "non-batched only")
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, pipeline, error):
     """An option or setting the port does not run raises before anything
     runs: what is not ported yet names its ROADMAP item, PGO or the image
-    source with the batched replay are refused, as the batched branch runs
-    neither, and --verify-sharded without a model-sharded BA replay has
-    nothing to check. None is ignored. (The model-sharded replay,
+    source (a staged capture too) with the batched replay are refused, as
+    the batched branch runs neither, --rig is the rig of a staged capture
+    and needs --sequence, and --verify-sharded without a model-sharded BA
+    replay has nothing to check. None is ignored. (The model-sharded replay,
     --verify-sharded and sharded loop closing run: tests/test_torch_dist_cli.py.)"""
     cfg = json.loads(Path(_tiny_cfg(tmp_path)).read_text())
     cfg["pipeline"].update(pipeline)
@@ -198,3 +203,134 @@ def test_cli_refuses_what_is_not_ported(tmp_path, extra, pipeline, error):
     with pytest.raises(exc, match=match):
         cli.main(["--config", str(p), "--device", "cpu", "--out", str(tmp_path / "o"), *extra])
     assert not (tmp_path / "o").exists()
+
+
+# A staged capture: the command line's room rendered by the port along
+# make_trajectory(6, radius=0.4) through default_rig(384), quantised to 8
+# bits as a PGM capture holds it, with the trajectory as its ground truth;
+# the JAX image tests' frontend at 384 px (K=384, a 96x768 panorama).
+SEQ_F, SEQ_IMG = 6, 384
+SEQ_CFG = {"run": {}, "pipeline": {
+    "frontend": {"max_features": 384, "pano_height": 96, "pano_width": 768,
+                 "descriptor_patch": 16},
+    "ransac": {"n_hyps": 256}, "mode": "images",
+    "ba": {"window": 3, "max_landmarks": 384, "iters": 2, "use_pallas_schur": False},
+    "keyframe_every": 2}}
+# The port's draws are its own generator's, the JAX command line's
+# jax.random's, and over 6 frames the draws alone move the frame-to-frame
+# ATE by several mm (0.0045 against 0.0089 m here): the two ATEs are held
+# within SEQ_ATE_TOL of each other and each under SEQ_ATE_MAX (m).
+SEQ_ATE_TOL, SEQ_ATE_MAX = 1e-2, 2e-2
+# A rig file stores elevations in degrees; read back, three of the default
+# rig's four bounds differ by an f32 step (the JAX package's load does the
+# same). Over these 6 frames that moves positions by about 1e-6 m and one
+# RANSAC inlier count by 1; over c2's 60 frames on the card, by millimetres
+# (chip_smoke.py phase 15 prints it).
+RIG_ROUND_TRIP_POS_TOL, RIG_ROUND_TRIP_COUNT_TOL = 1e-4, 2
+
+
+@pytest.fixture(scope="module")
+def capture(tmp_path_factory):
+    from sosvo_torch.data.sequence import save_sequence
+    from sosvo_torch.sensor.calib_io import save_rig
+    from sosvo_torch.sensor.rig import default_rig
+    from sosvo_torch.synth.scene import make_trajectory
+    from sosvo_torch.tools.workload import render_frames
+
+    d = tmp_path_factory.mktemp("capture")
+    rig = default_rig(image_size=SEQ_IMG, device="cpu")
+    images = render_frames(rig, SEQ_F, range(SEQ_F), "cpu").numpy()
+    frames = (np.clip(images, 0, 1) * 255).astype(np.uint8).astype(np.float32) / 255.0
+    save_sequence(d / "seq.npz", images=frames,
+                  poses=make_trajectory(SEQ_F, radius=0.4, device="cpu").numpy())
+    save_sequence(d / "no_poses.npz", images=frames)
+    save_rig(d / "rig.json", rig)
+    (d / "cfg.json").write_text(json.dumps(SEQ_CFG))
+    runs = {}
+    for mode in ("f2f", "ba"):
+        for rig_args in ((), ("--rig", str(d / "rig.json"))):
+            out = d / f"torch_{mode}{'_rig' if rig_args else ''}"
+            assert cli.main(["--config", str(d / "cfg.json"), "--device", "cpu", "--mode", mode,
+                             "--sequence", str(d / "seq.npz"), "--out", str(out),
+                             *rig_args]) == 0
+            runs[out.name] = out
+    return d, runs
+
+
+def _run_jax_cli(argv):
+    """The JAX command line in this process, its compilation-cache settings
+    left to the test session's (tests/conftest.py)."""
+    import jax
+
+    from sosvo import cli as jax_cli
+
+    update = jax.config.update
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.config, "update", lambda k, v: None if k.startswith(
+            ("jax_compilation_cache", "jax_persistent_cache", "jax_platforms")) else update(k, v))
+        assert jax_cli.main(argv) == 0
+
+
+@pytest.mark.parametrize("mode, with_rig", [("f2f", False), ("ba", True)],
+                         ids=["f2f", "ba_rig"])
+def test_cli_sequence_against_jax_cli(tmp_path, capture, mode, with_rig):
+    """The port's --sequence replay (with or without --rig) against the JAX
+    command line on the same bundle: the same frames, report keys (the
+    port's add `world`), every frame tracked in both, ATEs within
+    SEQ_ATE_TOL of each other and under SEQ_ATE_MAX."""
+    d, runs = capture
+    rig_args = ["--rig", str(d / "rig.json")] if with_rig else []
+    _run_jax_cli(["--config", str(d / "cfg.json"), "--platform", "cpu", "--mode", mode,
+                  "--sequence", str(d / "seq.npz"), "--out", str(tmp_path / "jax"), *rig_args])
+    ref = json.loads((tmp_path / "jax" / "report.json").read_text())
+    out = runs[f"torch_{mode}{'_rig' if with_rig else ''}"]
+    got = json.loads((out / "report.json").read_text())
+    assert set(ref) <= set(got) and got["mode"] == ref["mode"] == mode
+    assert got["frames"] == ref["frames"] == SEQ_F
+    rows, ref_rows = read_jsonl(out / "frames.jsonl"), read_jsonl(tmp_path / "jax" / "frames.jsonl")
+    assert [r["frame"] for r in rows] == [r["frame"] for r in ref_rows] == list(range(SEQ_F))
+    assert all(r["pose_ok"] for r in rows[1:]) and all(r["pose_ok"] for r in ref_rows[1:])
+    print(f"{mode} rig={with_rig}: ATE port {got['ate_rmse_m']} JAX {ref['ate_rmse_m']}")
+    assert abs(got["ate_rmse_m"] - ref["ate_rmse_m"]) < SEQ_ATE_TOL
+    assert max(got["ate_rmse_m"], ref["ate_rmse_m"]) < SEQ_ATE_MAX
+
+
+@pytest.mark.parametrize("mode", ["f2f", "ba"])
+def test_cli_sequence_rig_file(capture, mode):
+    """--rig with the default rig's file replays as the default rig does,
+    but for the file's degrees round trip: pose_ok equal on every frame,
+    counts within RIG_ROUND_TRIP_COUNT_TOL, positions within
+    RIG_ROUND_TRIP_POS_TOL."""
+    _, runs = capture
+    a = read_jsonl(runs[f"torch_{mode}"] / "frames.jsonl")
+    b = read_jsonl(runs[f"torch_{mode}_rig"] / "frames.jsonl")
+    assert len(a) == len(b) == SEQ_F
+    for ra, rb in zip(a, b):
+        assert (ra["frame"], ra["pose_ok"]) == (rb["frame"], rb["pose_ok"])
+        assert all(abs(ra[k] - rb[k]) <= RIG_ROUND_TRIP_COUNT_TOL
+                   for k in ("n_stereo", "n_temporal", "n_inliers"))
+        assert max(abs(x - y) for x, y in zip(ra["pos"], rb["pos"])) < RIG_ROUND_TRIP_POS_TOL
+
+
+def test_cli_sequence_without_poses(tmp_path, capture):
+    """A bundle without ground truth: the replay starts at identity, every
+    frame is logged, and ATE and RPE are null."""
+    d, _ = capture
+    assert cli.main(["--config", str(d / "cfg.json"), "--device", "cpu", "--mode", "ba",
+                     "--sequence", str(d / "no_poses.npz"), "--out", str(tmp_path)]) == 0
+    rep = json.loads((tmp_path / "report.json").read_text())
+    assert rep["frames"] == SEQ_F
+    assert rep["ate_rmse_m"] is None and rep["rpe_t_m"] is None and rep["rpe_r_rad"] is None
+    rows = read_jsonl(tmp_path / "frames.jsonl")
+    assert rows[0]["pos"] == [0.0, 0.0, 0.0] and all(r["pose_ok"] for r in rows[1:])
+
+
+def test_cli_sequence_refuses_non_square_frames(tmp_path):
+    from sosvo_torch.data.sequence import save_sequence
+
+    save_sequence(tmp_path / "wide.npz", images=np.zeros((2, 32, 48), np.float32))
+    p = tmp_path / "cfg.json"
+    p.write_text(json.dumps(SEQ_CFG))
+    with pytest.raises(ValueError, match="square"):
+        cli.main(["--config", str(p), "--device", "cpu", "--sequence", str(tmp_path / "wide.npz"),
+                  "--out", str(tmp_path / "o")])
