@@ -55,12 +55,17 @@ checkpoint and writes the same log as an uninterrupted run.
   frames' size; the bundle's ground-truth poses give the first pose and
   the ATE, and without them the replay starts at identity and the report's
   ATE and RPE are null.
+* `--viz`: after the report, the JAX command line's artifacts:
+  `trajectory.png` and `viewer.html` (`eval/plots.py`, `eval/html_viewer.py`;
+  lane 0 of a batched run), in BA mode `map.ply` and `map_3d.png` of the
+  final landmark map (`eval/viz.py`), in image mode `keypoints.png` and
+  `matches.png` on frame 0. They are drawn with matplotlib: where it does
+  not import, `--viz` raises ImportError before anything runs.
 The random streams are the port's own seeded generators, so its ATE is
 compared with the JAX package's by limits, not digit for digit.
-Options of the JAX command line that are not ported raise
-NotImplementedError naming their ROADMAP.md item; `--pgo` or the image
-source (`--sequence` too) with the batched replay raise ValueError, and so
-does `--rig` without `--sequence`. None is ignored.
+`--pgo` or the image source (`--sequence` too) with the batched replay
+raise ValueError, and so does `--rig` without `--sequence`. None is
+ignored.
 """
 
 from __future__ import annotations
@@ -75,21 +80,16 @@ from pathlib import Path
 
 import numpy as np
 
-# Options the port does not run yet, with the ROADMAP.md item that ports them.
-SIDE = "ROADMAP.md section 1, item 'Side modules'"
-NOT_PORTED = {
-    "viz": f"plots and viewers (eval/plots, viz, html_viewer): {SIDE}",
-}
-
-
 def _refuse_unported(args, cfg) -> None:
-    """Raise, before anything runs, for an option the port does not run:
-    NotImplementedError for what is not ported yet, ValueError for what the
+    """Raise, before anything runs, for an option this run cannot take:
+    ImportError for --viz without matplotlib, ValueError for what the
     batched replay does not run (in the JAX package neither)."""
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported to sosvo_torch "
-                                      f"yet: {NOT_PORTED[flag]}")
+    if args.viz:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise ImportError(f"--viz draws its artifacts with matplotlib, which does not import "
+                              f"here ({e}); run without --viz") from e
     if args.rig and not args.sequence:
         raise ValueError("--rig is the rig of a staged capture: pass it with --sequence")
     if cfg.frontend.descriptor == "sift" and _source(args, cfg) != "images":
@@ -186,7 +186,8 @@ def main(argv=None) -> int:
     ap.add_argument("--verify-sharded", action="store_true",
                     help="with dist.model_parallel > 1: replay once more on one device and "
                          "report the largest pose difference")
-    ap.add_argument("--viz", action="store_true", help="not ported yet")
+    ap.add_argument("--viz", action="store_true",
+                    help="write trajectory/map plots, map.ply and viewer.html (needs matplotlib)")
     args = ap.parse_args(argv)
 
     import torch
@@ -461,9 +462,63 @@ def main(argv=None) -> int:
             report["ate_rmse_single_device"] = _round(ate(outs_1.vo.T_world, gt)
                                                       if gt_available else None)
     (out / "report.json").write_text(json.dumps(report, indent=2))
+    if args.viz:
+        T_plot = T_est[0] if batched else T_est
+        gt_plot = (gt[0] if batched else gt) if gt_available else None
+        lm_map = state.map if args.mode == "ba" and not batched else None
+        img0 = None
+        if source == "images":  # frame 0, for the overlays
+            if args.sequence:
+                from sosvo_torch.data.sequence import load_sequence
+                img0 = load_sequence(args.sequence).images[0]
+            else:
+                from sosvo_torch.tools.workload import render_frames
+                img0 = render_frames(rig, n_frames, [0], device)[0].cpu().numpy()
+        artifacts = _write_viz(out, Path(args.config).stem, cfg, T_plot, gt_plot, rmse, lm_map,
+                               FrameObservations(*(x[0] for x in obs)) if img0 is not None
+                               else None, img0)
+        print(f"[sosvo_torch] viz artifacts: {', '.join(artifacts)}")
     print(json.dumps(report))
     dmesh.shutdown()
     return 0
+
+
+def _write_viz(out: Path, name: str, cfg, T_est, gt, ate: float | None, lm_map, obs0,
+               img0) -> list[str]:
+    """The JAX command line's --viz artifacts in `out`; returns their names.
+    `lm_map` is the BA replay's final map (or None), `obs0` and `img0`
+    frame 0's observations and image in image mode (or None)."""
+    from sosvo_torch.eval.html_viewer import export_html_viewer
+    from sosvo_torch.eval.plots import plot_trajectories
+    from sosvo_torch.eval.viz import keypoint_overlay, match_overlay, plot_map_3d, save_ply
+    from sosvo_torch.vo.pipeline import _match, azimuth_of
+
+    def host(x):
+        return None if x is None else x.detach().cpu().numpy()
+
+    T, G = host(T_est), host(gt)
+    ate_txt = "no ground truth" if ate is None else f"ATE {ate:.4f} m"
+    plot_trajectories(T, G, out / "trajectory.png", title=f"{name}: {ate_txt}")
+    lm, lv = (None, None) if lm_map is None else (host(lm_map.lm_pos), host(lm_map.lm_valid))
+    export_html_viewer(out / "viewer.html", T, traj_gt=G, landmarks=lm, lm_valid=lv, ate=ate,
+                       title=name)
+    artifacts = ["trajectory.png", "viewer.html"]
+    if lm_map is not None:
+        n_pts = save_ply(out / "map.ply", lm, valid=lv)
+        plot_map_3d(out / "map_3d.png", T, lm, lv, traj_gt=G,
+                    title=f"landmark map ({n_pts} points)")
+        artifacts += ["map.ply", "map_3d.png"]
+    if obs0 is not None:
+        keypoint_overlay(out / "keypoints.png", img0, host(obs0.uv_top), host(obs0.valid_top),
+                         host(obs0.uv_bottom), host(obs0.valid_bottom))
+        m = _match(cfg, obs0.desc_top, obs0.desc_bottom, obs0.valid_top, obs0.valid_bottom,
+                   az_a=azimuth_of(obs0.ray_top), az_b=azimuth_of(obs0.ray_bottom),
+                   band=cfg.frontend.stereo_band_rad)
+        match_overlay(out / "matches.png", img0, host(obs0.uv_top),
+                      host(obs0.uv_bottom[m.idx_b]), host(m.valid))
+        artifacts += ["keypoints.png", "matches.png"]
+    return artifacts
+
 
 if __name__ == "__main__":
     sys.exit(main())

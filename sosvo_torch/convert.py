@@ -15,6 +15,8 @@ import torch
 
 from sosvo_torch.backend.ba import BAWindow
 from sosvo_torch.backend.pose_graph import PoseGraph
+from sosvo_torch.calib.boards import BoardObservations, RigCalibResult
+from sosvo_torch.calib.fit import CalibResult
 from sosvo_torch.frontend.detect import Keypoints
 from sosvo_torch.frontend.image_frontend import FrontendLUTs
 from sosvo_torch.frontend.panorama import PanoGeometry
@@ -169,3 +171,28 @@ def keypoints_from_numpy(kps, device: torch.device | str | None = None) -> Keypo
                      cols=_t(kps.cols, device, torch.float32),
                      response=_t(kps.response, device, torch.float32),
                      valid=_t(kps.valid, device, torch.bool))
+
+
+def board_observations_from_numpy(obs, device: torch.device | str | None = None
+                                  ) -> BoardObservations:
+    """A `BoardObservations`-shaped object -> the port's (all f32)."""
+    return BoardObservations(*(_t(getattr(obs, f), device, torch.float32)
+                               for f in BoardObservations._fields))
+
+
+def calib_result_from_numpy(res, device: torch.device | str | None = None) -> CalibResult:
+    """A `CalibResult`-shaped object (`calib.fit.fit_view`'s) -> the port's."""
+    return CalibResult(view=view_from_numpy(res.view, device),
+                       rms_px=_t(res.rms_px, device, torch.float32),
+                       rms0_px=_t(res.rms0_px, device, torch.float32),
+                       accepted=_t(res.accepted, device, torch.bool))
+
+
+def rig_calib_result_from_numpy(res, device: torch.device | str | None = None
+                                ) -> RigCalibResult:
+    """A `RigCalibResult`-shaped object (`calib.boards`' fits) -> the port's."""
+    return RigCalibResult(rig=rig_from_numpy(res.rig, device),
+                          poses=_t(res.poses, device, torch.float32),
+                          rms_px=_t(res.rms_px, device, torch.float32),
+                          rms0_px=_t(res.rms0_px, device, torch.float32),
+                          accepted=_t(res.accepted, device, torch.bool))

@@ -68,16 +68,24 @@ def build() -> Path:
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     jobs = []
-    for src in (s for s in _sources() if s.suffix == ".cu"):
-        obj = so.parent / f".{src.stem}.{tag}.o"
-        jobs.append((obj, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                           text=True)))
     log, failed = "", []
-    for obj, proc in jobs:
-        log += proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(proc.returncode)
+    try:
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = so.parent / f".{src.stem}.{tag}.o"
+            jobs.append((obj, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                                str(src)], stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        for obj, proc in jobs:
+            log += proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+    finally:
+        # Every nvcc started is waited for, also when starting or reading
+        # one raised: none outlives the build.
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
     tmp = so.with_name(f".{so.name}.{tag}")
     if not failed:
         link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],

@@ -50,3 +50,20 @@ def default_rig(image_size: int = 768, baseline: float = 0.12,
         top=top, bottom=bottom,
         baseline=torch.as_tensor(baseline, dtype=torch.float32, device=device),
         image_height=image_size, image_width=image_size)
+
+
+def scale_rig(rig: OmnistereoRig, factor: float) -> OmnistereoRig:
+    """The same physical sensor at another image resolution (e.g. a 1536 px
+    calibration capture replayed at 768). Pinhole intrinsics scale with the
+    image under the half-pixel-centre convention, u' = (u + 0.5) f - 0.5, in
+    f32 as the reference computes them; xi, distortion, misalignment,
+    elevations and the metric baseline do not change."""
+
+    def scale_view(v: ViewParams) -> ViewParams:
+        f = torch.tensor(float(np.float32(factor)), dtype=torch.float32, device=v.fx.device)
+        return v._replace(fx=v.fx * f, fy=v.fy * f,
+                          cx=(v.cx + 0.5) * f - 0.5, cy=(v.cy + 0.5) * f - 0.5)
+
+    return rig._replace(top=scale_view(rig.top), bottom=scale_view(rig.bottom),
+                        image_height=int(round(rig.image_height * factor)),
+                        image_width=int(round(rig.image_width * factor)))

@@ -21,6 +21,25 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
 B1_OP_PER_S = 1.574104e16
+# The matcher's distances run at the faster tensor-core form of the same work.
+MATCHER_OP_PER_S = max(INT8_OP_PER_S, B1_OP_PER_S)
+
+
+def matcher_work(ka: int, kb: int, band: bool) -> tuple[float, float]:
+    """(bytes, operations) of one Hamming-match statistics call at ka x kb:
+    `matcher_bound_ms` says what they count."""
+    n_in = (ka + kb) * (32 + 1 + (4 if band else 0))
+    n_out = ka * 12 + kb * 4
+    return float(n_in + n_out), 2.0 * ka * kb * 256
+
+
+def schur_work(W: int, L: int) -> tuple[float, float]:
+    """(bytes, f32 operations) of one Schur reduction of a W x L window:
+    `schur_bound_ms` says what they count."""
+    n = 6 * W
+    n_bytes = 4 * (W * L * 18 + 9 * L + 3 * L + 36 * W + 6 * W + 1
+                   + 9 * L + n * n + n)
+    return float(n_bytes), float(L * (3 * n * (n + 1) + 18 * n + 6 * n + 40))
 
 
 def _bound(n_bytes: float, ops: float, op_rate: float) -> tuple[float, str]:
@@ -40,9 +59,7 @@ def matcher_bound_ms(ka: int, kb: int, band: bool) -> tuple[float, str]:
     measured wgmma rate. The b1 rate is the faster (B1_OP_PER_S, 8x int8),
     so it bounds the operations; at 512 x 512 the bytes bound the call.
     """
-    n_in = (ka + kb) * (32 + 1 + (4 if band else 0))
-    n_out = ka * 12 + kb * 4
-    return _bound(n_in + n_out, 2.0 * ka * kb * 256, max(INT8_OP_PER_S, B1_OP_PER_S))
+    return _bound(*matcher_work(ka, kb, band), MATCHER_OP_PER_S)
 
 
 def schur_bound_ms(W: int, L: int) -> tuple[float, str]:
@@ -55,8 +72,4 @@ def schur_bound_ms(W: int, L: int) -> tuple[float, str]:
     of its upper triangle), 2 n 9 for A, 2 n 3 for b_sub, and about 40 for
     the damped adjugate inverse.
     """
-    n = 6 * W
-    n_bytes = 4 * (W * L * 18 + 9 * L + 3 * L + 36 * W + 6 * W + 1
-                   + 9 * L + n * n + n)
-    flops = L * (3 * n * (n + 1) + 18 * n + 6 * n + 40)
-    return _bound(n_bytes, flops, F32_FLOP_PER_S)
+    return _bound(*schur_work(W, L), F32_FLOP_PER_S)

@@ -172,7 +172,6 @@ def test_cli_batched_runs_both_modes(tmp_path):
         assert len(rows) == 6 and all(r["pose_ok"] for r in rows[1:])
 
 
-NOT_PORTED = (NotImplementedError, "ROADMAP.md section 1, item '")
 NOT_BATCHED = (ValueError, "non-batched only")
 
 
@@ -180,21 +179,25 @@ NOT_BATCHED = (ValueError, "non-batched only")
     (["--sequence", "capture.npz"], {"dist": {"data_parallel": 2}},
      (ValueError, "observation-mode")),
     (["--rig", "rig.json"], {}, (ValueError, "with --sequence")),
-    (["--viz"], {}, NOT_PORTED),
+    (["--viz"], {}, (ImportError, "matplotlib")),
     (["--pgo"], {"dist": {"data_parallel": 2}}, NOT_BATCHED),
     ([], {"dist": {"data_parallel": 2}, "pose_graph": True}, NOT_BATCHED),
     (["--source", "images"], {"dist": {"data_parallel": 2}}, (ValueError, "observation-mode")),
     (["--verify-sharded"], {}, (ValueError, "model_parallel > 1"))],
     ids=["sequence", "rig", "viz", "batched_pgo", "batched_pose_graph", "batched_images",
          "verify_unsharded"])
-def test_cli_refuses_what_is_not_ported(tmp_path, extra, pipeline, error):
-    """An option or setting the port does not run raises before anything
-    runs: what is not ported yet names its ROADMAP item, PGO or the image
-    source (a staged capture too) with the batched replay are refused, as
-    the batched branch runs neither, --rig is the rig of a staged capture
-    and needs --sequence, and --verify-sharded without a model-sharded BA
-    replay has nothing to check. None is ignored. (The model-sharded replay,
-    --verify-sharded and sharded loop closing run: tests/test_torch_dist_cli.py.)"""
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, extra, pipeline, error):
+    """An option or setting the run cannot take raises before anything
+    runs: --viz where matplotlib does not import (hidden here, as on a
+    machine without it), PGO or the image source (a staged capture too)
+    with the batched replay, as the batched branch runs neither, --rig
+    without --sequence (it is the rig of a staged capture), and
+    --verify-sharded without a model-sharded BA replay, which leaves it
+    nothing to check. None is ignored. (The model-sharded replay,
+    --verify-sharded and sharded loop closing run:
+    tests/test_torch_dist_cli.py; --viz with matplotlib:
+    tests/test_torch_viz.py.)"""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # any `import matplotlib` raises
     cfg = json.loads(Path(_tiny_cfg(tmp_path)).read_text())
     cfg["pipeline"].update(pipeline)
     p = tmp_path / "c.json"
