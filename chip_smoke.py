@@ -75,6 +75,22 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      keyframes as 6c runs it, with the reference's per-pair draws, held to
      the JAX package's ATE after its leg, and two `build_system` calls on
      the leg's graph bit-identical;
+ 17. configs/c3_adaptive.json as written on 7c's rendered and extracted
+     frames and its command-line draws (the preset renders and extracts as
+     c3_host_pgo does): the window-BA replay with motion-adaptive keyframes
+     (0.04 m, 0.08 rad, gaps 2 to 8) under PyTorch's sync debug mode, then
+     the loop leg over the scan's own keyframes, `nonzero(is_keyframe)`,
+     with the reference's per-pair draws: pose_ok 199/199, (n_kf - 1) x 5
+     Schur and 2 x 200 + n_kf + relocalisations matcher launches in the
+     replay, 2 host syncs per frame, every flag equal to the trigger's rule
+     on the motion the replay saw, n_kf + 160 matcher and 640 Schur launches
+     on the leg, a loop, the PoseGraph handed to `pgo_solve` with the scan's
+     keyframes as its nodes, the correction constant within each governing
+     segment, and the ATE before and after the leg under the JAX package's
+     worst plus twice the spread over seeds 0-2 and shifted renders
+     (scripts/ref_c3_adaptive_ate.py); it prints the card's keyframes beside
+     the JAX package's seed 0 (the frames where they differ counted) and
+     each threshold crossing's distance to its threshold;
   8. hold the Schur-reduction kernel against its plain version on the card
      (raw S_off, b_sub and inverses, each relative to its own largest
      magnitude: 1e-5, 1e-5, 1e-4), check that two calls are bit-identical,
@@ -210,7 +226,12 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
      loop leg: every frame tracked, a loop closed), and c1 frame to frame
      with --ckpt-every 4, with and without --pgo: a --fault-inject 5 run
      exits 42 and its --resume writes the uninterrupted run's frames.jsonl
-     byte for byte, with the same pgo_loops and ATE; then under `torchrun
+     byte for byte, with the same pgo_loops and ATE; c3_adaptive as written
+     (every frame tracked, a loop, both ATEs under phase 17's limits) and
+     killed after frame 128 (--ckpt-every 32 --fault-inject 96) and
+     resumed: frames.jsonl byte for byte, the same pgo_loops and ATE, and
+     the keyframe flags it read back and handed PGO (kf_*.npy) the
+     uninterrupted run's; then under `torchrun
      --nproc-per-node 8`, one process group per preset: c5 with
      --verify-sharded (the report's model axis 8 and its pose difference
      under 1e-3) and c3_long_sharded as written (1024 rendered frames,
@@ -218,14 +239,18 @@ Phases (each prints its numbers; any failure raises and exits non-zero):
 Each replay and each loop-closure leg resets the launch counts just before
 it and reads them just after (in each rank, for the ranks' paths); the
 kernels line's `launches` are those of phase 7c (c3 image-native: its BA
-replay plus its loop leg), phase 10 (c4 in both modes), phase 12, phase
-13's sharded leg (summed over the ranks), phase 14's replays and leg and
-phase 15's staged replay and live runs and phase 16's fitted-rig replay,
-`launches_by_path` every path's. Each phase's wall time is printed.
+replay plus its loop leg), phase 17 (c3_adaptive: its replay and its leg),
+phase 10 (c4 in both modes), phase 12, phase 13's sharded leg (summed over
+the ranks), phase 14's replays and leg and phase 15's staged replay and
+live runs and phase 16's fitted-rig replay, `launches_by_path` every
+path's. Each phase's wall time is printed. To keep the whole run inside
+its time limit, the replays at c3's and c4's sizes (phases 4, 6, 7c, 10
+and 14e) are checked once and not timed again.
 `python3 chip_smoke.py --dist-only` runs the build and phases 12 (with
 12b), 13 and 11's torchrun runs alone, `--descriptors-only` the build and
 phase 14 alone, `--sequence-only` the build and phase 15 alone,
-`--calib-only` the build and phase 16 alone; none prints a result line.
+`--calib-only` the build and phase 16 alone, `--adaptive-only` the build
+and phase 17 alone (on a render of its own); none prints a result line.
 After phase 10, before phase 14, it counts each kernel's device events per
 call (profiler; 1 each: one launch, no fills or copies): every profiler
 session runs before the phases that start processes of their own on the
@@ -234,7 +259,8 @@ Every child process starts in a session of its own and is waited for; on a
 timeout or an error its whole process group is killed (`run_children`).
 Before its result it looks in /proc for any process below its own; if one
 is left, it kills it and fails with no result line.
-The phases run in the order 1-10, 14, 15, 16, 12, 13, 11. At the end it prints
+The phases run in the order 1-7c, 17, 8-10, 14, 15, 16, 12, 13, 11. At the
+end it prints
 the card's name and power limit, one JSON line describing
 each kernel (with its route: the matcher's b1 tensor-core product, the
 Schur kernel's cluster size), and as the last line
@@ -245,7 +271,9 @@ repository.
 
 from __future__ import annotations
 
+import collections
 import json
+import os
 import statistics
 import sys
 import time
@@ -456,8 +484,11 @@ def compare_frame_matches(label, cfg, n_landmarks, device, results):
 
 
 def timed_replays(replay, reps: int) -> float:
+    """Median host seconds of `reps` replays; nan for none (not timed)."""
     import torch
 
+    if reps == 0:
+        return float("nan")
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -989,7 +1020,18 @@ IMAGE_REF_ATE_M = {"c2_ba": (0.007460933178663254, 0.007471336517482996, 0.00739
                                   0.019288048148155212, 0.02246752195060253),
                    "c3_sift_pgo": (0.01146115642040968, 0.011048964224755764, 0.01115184836089611,
                                    0.010822121985256672, 0.010546239092946053,
-                                   0.011040992103517056, 0.010637504048645496)}
+                                   0.011040992103517056, 0.010637504048645496),
+                   # configs/c3_adaptive.json (scripts/ref_c3_adaptive_ate.py):
+                   # the same seeds and shifted renders; its window-BA replay
+                   # and after its loop leg over the scan's adaptive keyframes
+                   "c3_adaptive_ba": (0.01612289622426033, 0.01279922854155302,
+                                     0.013568253256380558, 0.013017147779464722,
+                                     0.014509744942188263, 0.017512885853648186,
+                                     0.016565706580877304),
+                   "c3_adaptive_pgo": (0.014563639648258686, 0.01141697634011507,
+                                      0.01774890162050724, 0.018167944625020027,
+                                      0.012845265679061413, 0.01141277328133583,
+                                      0.015943169593811035)}
 C3_SIFT_REF_LOOPS = (9, 11)  # n_loops of c3's SIFT leg over those rows (the same script)
 
 
@@ -1133,7 +1175,7 @@ def image_ba_phase(label: str, cfg, n_frames: int, ref_name: str, max_ate: float
     prints the distance to seed 0. Prints frames/s of the replay including
     extraction and the frontend's ms per frame (host clock, synchronised).
     Returns (matcher launches, Schur launches, rig, poses, observations,
-    outputs)."""
+    outputs, the draws)."""
     import torch
     from sosvo_torch.eval.ate import ate_rmse
     from sosvo_torch.frontend.image_frontend import extract_sequence
@@ -1172,7 +1214,7 @@ def image_ba_phase(label: str, cfg, n_frames: int, ref_name: str, max_ate: float
         check(rmse < max_ate, f"{label}: ATE {rmse} m >= {max_ate} m")
 
     extract_s = []
-    for _ in range(2):
+    for _ in range(2 if timed_reps else 0):  # the frontend alone, timed with the replays
         t0 = time.perf_counter()
         extract_sequence(rig, luts, cfg.frontend, images)
         torch.cuda.synchronize()
@@ -1190,11 +1232,192 @@ def image_ba_phase(label: str, cfg, n_frames: int, ref_name: str, max_ate: float
           f"keyframes={n_kf} relocalisations={n_reloc} "
           f"map_slots={int(outs.n_landmarks[-1])}/{cfg.ba.max_landmarks} "
           f"matcher_launches={m_launches} schur_launches={s_launches} "
-          f"frontend_ms_per_frame={1e3 * min(extract_s) / n_frames} "
+          f"frontend_ms_per_frame={1e3 * min(extract_s, default=float('nan')) / n_frames} "
           f"replay_s_median={med} frames_per_s={n_frames / med} (host clock, extraction "
           f"included, {timed_reps} runs after one checked run) render_and_extract_setup_s={setup_s}",
           flush=True)
-    return m_launches, s_launches, rig, poses, obs, outs
+    return m_launches, s_launches, rig, poses, obs, outs, draws
+
+
+
+# configs/c3_adaptive.json in the JAX package on the CPU
+# (scripts/ref_c3_adaptive_ate.py): seed 0's keyframes, the command line's
+# own run. The card's render rounds apart from the CPU's, and on some frame
+# of every JAX row the trigger's motion sits within 1.4e-4 to 3.1e-4 (m or
+# rad) of a threshold, so the card's set may part from it on a few frames:
+# phase 17 counts them and holds none.
+C3_ADAPTIVE_REF_KF = (
+    0, 2, 4, 6, 9, 11, 13, 15, 17, 19, 21, 23, 25, 27, 29, 31, 33, 35, 37, 39, 41, 43, 45, 47,
+    49, 51, 53, 55, 57, 59, 61, 63, 65, 68, 70, 72, 74, 76, 78, 80, 82, 84, 86, 88, 90, 92, 94,
+    96, 98, 100, 102, 104, 106, 108, 110, 112, 114, 116, 118, 120, 122, 124, 126, 129, 131,
+    133, 135, 137, 139, 141, 143, 145, 147, 149, 151, 153, 155, 157, 159, 161, 163, 165, 167,
+    169, 171, 173, 175, 177, 179, 181, 183, 186, 188, 190, 192, 194, 196, 198)
+
+
+def adaptive_phase(device, workload=None) -> dict:
+    """17: configs/c3_adaptive.json as written, in this process: image mode,
+    K=2048, 200 frames, W5/L1024 window BA with motion-adaptive keyframes
+    (0.04 m, 0.08 rad, gaps 2 to 8), then the loop leg over the scan's own
+    keyframes, `nonzero(is_keyframe)`, as sosvo/cli.py runs it. `workload`:
+    phase 7c's (rig, poses, observations, the command line's replay draws);
+    c3_adaptive renders, extracts and draws as c3_host_pgo does (checked), so
+    the phase pays only for its replay and its leg. None renders them here.
+
+    The replay runs under PyTorch's sync debug mode. Checks pose_ok on every
+    frame, (n_kf - 1) x 5 Schur and 2 x 200 + n_kf + relocalisations matcher
+    launches, 2 host syncs per frame (the lazy gate, then pose_ok and the
+    adaptive trigger in one read; one more at the start and per
+    relocalisation), each keyframe flag equal to the trigger's rule on the
+    motion the replay saw, and the ATE under the JAX rows' worst plus twice
+    the spread. Prints the card's keyframes beside the JAX package's seed 0
+    (the frames where they differ counted) and each threshold crossing's
+    distance to its threshold. The leg (`pgo_phase`, with the reference's
+    per-pair draws): one matcher launch per keyframe and per pair, 4 Schur
+    launches per pair, a loop, the ATE after under the JAX limit; the
+    PoseGraph handed to `pgo_solve` has the scan's keyframes as its nodes
+    (their replayed poses, bit for bit), and the correction is constant
+    within each governing segment. Returns {path: (matcher launches, Schur
+    launches)}."""
+    import numpy as np
+    import torch
+    from sosvo_torch.eval.ate import ate_rmse
+    from sosvo_torch.geom.lie import mat_inv
+    from sosvo_torch.kernels import match_cuda, schur_cuda
+    from sosvo_torch.tools.reference_draws import loop_draws, replay_draws
+    from sosvo_torch.tools.sync_check import syncs_during
+    from sosvo_torch.tools.workload import SEED, load_image_preset, make_image_workload
+    from sosvo_torch.vo import ba_pipeline, loop_closure
+
+    label = "c3_adaptive"
+    cfg, run = load_image_preset("c3_adaptive")
+    c3, c3_run = load_image_preset("c3_host_pgo")
+    n = run["n_frames"]
+    check((cfg.frontend, cfg.ransac, cfg.ba, n) == (c3.frontend, c3.ransac, c3.ba, c3_run["n_frames"]),
+          f"{label}: its frontend, RANSAC, BA widths or length differ from c3_host_pgo's")
+    t0 = time.perf_counter()
+    if workload is None:
+        rig, poses, _, _, obs = make_image_workload(cfg, n, device, keep_images=False)
+        draws = replay_draws(n, cfg.ransac.n_hyps, cfg.frontend.max_features, device,
+                             reloc_slots=cfg.ba.max_landmarks)
+    else:
+        rig, poses, obs, draws = workload
+    state = ba_pipeline.init_ba_state(cfg, torch.Generator(device=device).manual_seed(SEED + 2),
+                                      T0=poses[0], device=device)
+    motion, real_motion = {}, ba_pipeline._adaptive_motion
+
+    def spy_motion(m, track, frame):
+        motion[frame] = real_motion(m, track, frame)  # a relocalised frame's last call decides
+        return motion[frame]
+
+    ba_pipeline._adaptive_motion = spy_motion
+    try:
+        torch.cuda.synchronize()
+        match_cuda.reset_launches()
+        schur_cuda.reset_launches()
+        t1 = time.perf_counter()
+        (_, outs), flagged = syncs_during(lambda: ba_pipeline.run_replay_ba(rig, cfg, state, obs,
+                                                                           draws))
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t1
+        m_launches, s_launches = match_cuda.launches, schur_cuda.launches
+    finally:
+        ba_pipeline._adaptive_motion = real_motion
+    gt = poses[1:, :3, 3]
+    rmse = float(ate_rmse(outs.vo.T_world[1:, :3, 3], gt)[0])
+    n_ok = int(outs.vo.pose_ok[1:].sum())
+    flags = outs.is_keyframe.cpu().numpy()
+    kf = np.nonzero(flags)[0]
+    n_kf, n_reloc = len(kf), int(outs.reloc_tried.sum())
+    syncs = len(flagged)
+    where = collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in flagged)
+    at_gate = sum(w.filename.endswith(os.path.join("vo", "pipeline.py")) for w in flagged)
+    at_read = sum(w.filename.endswith("ba_pipeline.py") for w in flagged)
+    ref, margin = image_ate_limit("c3_adaptive_ba")
+    check(bool(torch.isfinite(outs.vo.T_world).all()), f"{label}: non-finite pose")
+    check(n_ok == n - 1, f"{label}: pose_ok on {n_ok}/{n - 1} frames")
+    check(s_launches == (n_kf - 1) * cfg.ba.iters,
+          f"{label}: {s_launches} Schur launches, expected ({n_kf} - 1) x {cfg.ba.iters}")
+    check(m_launches == 2 * n + n_kf + n_reloc,
+          f"{label}: {m_launches} matcher launches, expected 2 x {n} + {n_kf} + {n_reloc}")
+    check(rmse <= ref + margin, f"{label}: ATE {rmse} m above the JAX reference {ref} + {margin}")
+    # the gate on every frame (vo/pipeline.py); one read at the start and
+    # pose_ok with the trigger from frame 1 on (vo/ba_pipeline.py), and a
+    # relocalised frame reads the trigger again. A first call in the process
+    # may add a sync of its own elsewhere (printed, not held).
+    check(at_gate == n and at_read == n + n_reloc,
+          f"{label}: {at_gate} syncs at the gate and {at_read} in vo/ba_pipeline.py in {n} "
+          f"frames, expected {n} and {n} + {n_reloc} relocalisations; all: {dict(where)}")
+
+    frames = sorted(motion)
+    trans, rot = (torch.stack([motion[f][i] for f in frames]).cpu().numpy() for i in (0, 1))
+    gap = torch.stack([motion[f][2] for f in frames]).cpu().numpy()
+    over = np.maximum(trans - cfg.kf_trans_thresh, rot - cfg.kf_rot_thresh)
+    decided = (gap >= cfg.kf_min_gap) & (gap < cfg.kf_max_gap)
+    rule = (gap >= cfg.kf_min_gap) & ((over > 0) | (gap >= cfg.kf_max_gap))
+    check(np.array_equal(rule, flags[frames]),
+          f"{label}: keyframe flags differ from the trigger's rule on frames "
+          f"{[f for f, a, b in zip(frames, rule, flags[frames]) if a != b]}")
+    crossings = [(f, float(d)) for f, d, k, dec in zip(frames, over, flags[frames], decided)
+                 if k and dec]
+    below = [(f, float(-d)) for f, d, k, dec in zip(frames, over, flags[frames], decided)
+             if not k and dec]
+    jax_flags = np.zeros(n, bool)
+    jax_flags[list(C3_ADAPTIVE_REF_KF)] = True
+    differ = np.nonzero(flags != jax_flags)[0].tolist()
+    stride = np.arange(0, n, c3.keyframe_every)
+    print(f"replay {label}: images {rig.image_height}x{rig.image_width} pano "
+          f"{cfg.frontend.pano_height}x{cfg.frontend.pano_width} K={cfg.frontend.max_features} "
+          f"H={cfg.ransac.n_hyps} W={cfg.ba.window} L={cfg.ba.max_landmarks} frames={n} "
+          f"keyframe_mode=adaptive trans>{cfg.kf_trans_thresh} rot>{cfg.kf_rot_thresh} "
+          f"gap {cfg.kf_min_gap}-{cfg.kf_max_gap} draws=JAX PRNGKey(2) ATE_m={rmse} "
+          f"(JAX seed 0 {IMAGE_REF_ATE_M['c3_adaptive_ba'][0]}: "
+          f"{rmse - IMAGE_REF_ATE_M['c3_adaptive_ba'][0]:+.3e}; limit {ref + margin}: JAX CPU "
+          f"reference worst {ref} + {margin}) pose_ok={n_ok}/{n - 1} keyframes={n_kf} "
+          f"(stride {c3.keyframe_every} would give {len(stride)}; the same set: "
+          f"{np.array_equal(kf, stride)}) relocalisations={n_reloc} "
+          f"matcher_launches={m_launches} schur_launches={s_launches} syncs={syncs} "
+          f"syncs_per_frame={syncs / n} (at the gate {at_gate}, in vo/ba_pipeline.py {at_read}, "
+          f"elsewhere {syncs - at_gate - at_read}; by line {dict(where)}) "
+          f"replay_s={replay_s} (host clock, under the sync debug mode) "
+          f"workload_from_7c={workload is not None}", flush=True)
+    print(f"keyframes {label}: card {kf.tolist()}", flush=True)
+    print(f"keyframes {label}: JAX seed 0 {list(C3_ADAPTIVE_REF_KF)} ({len(C3_ADAPTIVE_REF_KF)}); "
+          f"frames where the card's flags differ: {len(differ)} {differ}", flush=True)
+    print(f"keyframes {label}: threshold crossings, the larger overshoot of translation (m) and "
+          f"rotation (rad) per motion-decided keyframe: {[(f, f'{d:.3e}') for f, d in crossings]}; "
+          f"closest crossing {min(crossings, key=lambda x: x[1], default=None)}; closest frame "
+          f"that stayed below {min(below, key=lambda x: x[1], default=None)}; keyframes at the max "
+          f"gap {int(((gap >= cfg.kf_max_gap) & flags[frames]).sum())}", flush=True)
+
+    captured, real_solve = {}, loop_closure.pgo_solve
+
+    def spy_solve(g, **kw):
+        captured["g"] = g
+        return real_solve(g, **kw)
+
+    loop_closure.pgo_solve = spy_solve
+    try:
+        leg, leg_m, leg_s, after = pgo_phase(
+            "c3_adaptive_pgo_leg", cfg, rig, poses, obs, outs.vo.T_world, kf,
+            *image_ate_limit("c3_adaptive_pgo"), device, must_drop=False,
+            gumbels=loop_draws(cfg.loop_candidates, cfg.ransac.n_hyps, cfg.frontend.max_features,
+                               device))
+    finally:
+        loop_closure.pgo_solve = real_solve
+    g = captured["g"]
+    kf_t = torch.as_tensor(kf, device=device)
+    check(g.X.shape[0] == n_kf and torch.equal(g.X, mat_inv(outs.vo.T_world[kf_t])),
+          f"{label}: the pose graph's {g.X.shape[0]} nodes are not the scan's {n_kf} keyframes")
+    gov = torch.as_tensor(loop_closure.governing_map(n, kf), device=device).long()
+    corr = leg.T_corrected @ mat_inv(outs.vo.T_world)
+    seg_err = float((corr - corr[kf_t][gov]).abs().max())
+    check(seg_err < 1e-5, f"{label}: the leg's correction varies by {seg_err} within a segment")
+    print(f"pgo c3_adaptive_pgo_leg: nodes={g.X.shape[0]} = the scan's keyframes (poses bit-equal) "
+          f"correction_within_segment_max_abs_diff={seg_err} ATE before {rmse} after {after} "
+          f"(JAX seed 0 {IMAGE_REF_ATE_M['c3_adaptive_ba'][0]} -> "
+          f"{IMAGE_REF_ATE_M['c3_adaptive_pgo'][0]}: after {after - IMAGE_REF_ATE_M['c3_adaptive_pgo'][0]:+.3e}) "
+          f"phase_s={time.perf_counter() - t0} (host clock)", flush=True)
+    return {"c3_adaptive_ba": (m_launches, s_launches), "c3_adaptive_pgo_leg": (leg_m, leg_s)}
 
 
 # The JAX package's per-lane ATE (m) of configs/c4_batched_replay.json on the
@@ -1321,12 +1544,19 @@ def cli_phase(c4_limits, configs: Path = ROOT / "configs", device_args=()) -> No
     frame 0 in the log, c3 closes a loop; c1 frame to frame with
     --ckpt-every 4: a --fault-inject 5 run exits 42 and its --resume writes
     the uninterrupted run's frames.jsonl byte for byte; the same with
-    --pgo, its report's loops and ATE equal too. Runs that do not wait on
-    one another share the card, at most four processes at once: the four
-    presets, then the four c1 runs before their resumes, then the two
-    resumes. The presets are read from `configs`; `device_args` go to every
-    run."""
+    --pgo, its report's loops and ATE equal too; c3_adaptive as written
+    (every frame tracked, a loop closed, the report's ATE before and after
+    the leg under the JAX limits) and again with --ckpt-every 32
+    --fault-inject 96 (exit 42 after frame 128), then --resume: frames.jsonl
+    byte for byte, the same loops and ATE, and the keyframe flags the resume
+    read back (kf_00000128.npy) and handed PGO (kf_00000200.npy) equal the
+    uninterrupted run's. Runs that do not wait on one another share the
+    card: the five presets with the c3_adaptive run that is killed, then the
+    four c1 runs before their resumes, then the three resumes. The presets
+    are read from `configs`; `device_args` go to every run."""
     import shutil
+
+    import numpy as np
 
     out = ROOT / "build" / "chip_smoke_cli"
     shutil.rmtree(out, ignore_errors=True)
@@ -1346,8 +1576,10 @@ def cli_phase(c4_limits, configs: Path = ROOT / "configs", device_args=()) -> No
         rows = [json.loads(x) for x in (d / "frames.jsonl").read_text().splitlines()]
         return all(r["pose_ok"] for r in rows[1:]), len(rows)
 
+    ca, ca_args = "c3_adaptive", ("--ckpt-every", "32")
     at_once({f"c4_{mode}": ("c4_batched_replay", ("--mode", mode), 0) for mode in ("f2f", "ba")}
-            | {preset: (preset, (), 0) for preset in ("c2_chip_ba", "c3_host_pgo")})
+            | {preset: (preset, (), 0) for preset in ("c2_chip_ba", "c3_host_pgo", ca)}
+            | {f"{ca}_faulted": (ca, (*ca_args, "--fault-inject", "96"), 42)})
     for mode in ("f2f", "ba"):
         d = out / f"c4_{mode}"
         rep = report(d)
@@ -1365,6 +1597,15 @@ def cli_phase(c4_limits, configs: Path = ROOT / "configs", device_args=()) -> No
               f"cli {preset}: report {rep}, or a frame lost")
         check(preset != "c3_host_pgo" or rep["pgo_loops"] >= 1, f"cli {preset}: no loop closed")
         print(f"cli {preset}: report {json.dumps(rep)}", flush=True)
+    rep, n = report(out / ca), frames(ca)
+    limits = {k: sum(image_ate_limit(f"{ca}_{k}")) for k in ("ba", "pgo")}
+    check(rep["mode"] == "ba" and rep["frames"] == n and all_tracked(out / ca) == (True, n),
+          f"cli {ca}: report {rep}, or a frame lost")
+    check(rep["pgo_loops"] >= 1, f"cli {ca}: no loop closed")
+    check(rep["ate_rmse_vo_m"] <= limits["ba"] and rep["ate_rmse_m"] <= limits["pgo"],
+          f"cli {ca}: ATE before / after the leg {rep['ate_rmse_vo_m']} / {rep['ate_rmse_m']} m, "
+          f"limits {limits['ba']} / {limits['pgo']} (the JAX rows' worst + twice the spread)")
+    print(f"cli {ca}: report {json.dumps(rep)}; limits before / after the leg {limits}", flush=True)
     c1 = "c1_cpu_smoke"
     variants = {tag: ("--mode", "f2f", "--ckpt-every", "4", *extra)
                 for tag, extra in (("c1", ()), ("c1_pgo", ("--pgo",)))}
@@ -1373,7 +1614,8 @@ def cli_phase(c4_limits, configs: Path = ROOT / "configs", device_args=()) -> No
         first[f"{tag}_full"] = (c1, args, 0)
         first[f"{tag}_faulted"] = (c1, (*args, "--fault-inject", "5"), 42)
     at_once(first)
-    at_once({f"{tag}_faulted": (c1, (*args, "--resume"), 0) for tag, args in variants.items()})
+    at_once({f"{tag}_faulted": (c1, (*args, "--resume"), 0) for tag, args in variants.items()}
+            | {f"{ca}_faulted": (ca, (*ca_args, "--resume"), 0)})
     for tag in variants:
         full, resumed = out / f"{tag}_full", out / f"{tag}_faulted"
         a, b = (full / "frames.jsonl").read_bytes(), (resumed / "frames.jsonl").read_bytes()
@@ -1384,6 +1626,27 @@ def cli_phase(c4_limits, configs: Path = ROOT / "configs", device_args=()) -> No
         print(f"cli {tag}: killed after frame 5 (exit 42), resumed at frame 8: frames.jsonl "
               f"identical ({len(a)} bytes), pgo_loops={rb['pgo_loops']} "
               f"ate_rmse_m={rb['ate_rmse_m']} in both", flush=True)
+    # c3_adaptive killed and resumed: the resumed run hands PGO the scan's
+    # whole adaptive keyframe set, the checkpoint's prefix and its own flags
+    full, resumed = out / ca, out / f"{ca}_faulted"
+    a, b = (full / "frames.jsonl").read_bytes(), (resumed / "frames.jsonl").read_bytes()
+    check(a == b, f"cli {ca}: the resumed frames.jsonl differs from the uninterrupted one")
+    ra, rb = report(full), report(resumed)
+    check((ra["pgo_loops"], ra["ate_rmse_m"]) == (rb["pgo_loops"], rb["ate_rmse_m"]),
+          f"cli {ca}: resumed report {rb} differs from {ra}")
+    kf = {(d.name, step): np.load(d / "ckpt" / f"kf_{step:08d}.npy")
+          for d in (full, resumed) for step in (128, n)}
+    check(np.array_equal(kf[full.name, 128], kf[resumed.name, 128])
+          and np.array_equal(kf[full.name, n], kf[resumed.name, n]) and len(kf[full.name, n]) == n,
+          f"cli {ca}: the keyframe flags the resumed run read or handed PGO differ from the "
+          f"uninterrupted run's")
+    nodes = np.nonzero(kf[resumed.name, n])[0]
+    print(f"cli {ca}: killed after frame 128 (--fault-inject 96, --ckpt-every 32; exit 42), "
+          f"resumed at frame 128: frames.jsonl identical ({len(a)} bytes), "
+          f"pgo_loops={rb['pgo_loops']} ate_rmse_m={rb['ate_rmse_m']} in both; the flags read "
+          f"back (kf_00000128.npy, {int(kf[resumed.name, 128].sum())} keyframes) and handed PGO "
+          f"(kf_{n:08d}.npy: {len(nodes)} nodes, {nodes.tolist()}) equal the uninterrupted "
+          f"run's", flush=True)
     cli_dist_phase(configs, device_args)
 
 
@@ -1960,8 +2223,8 @@ def descriptor_phase(device, results, configs: Path = ROOT / "configs", device_a
     launches["c2_images_sift_ba"] = (m, s_)
     descriptor_cli_phase(configs / "c2_chip_ba.json", "sift", device_args)
     c3s = with_descriptor(c3i, "sift")                                             # 14e
-    m, s_, rig, poses, obs, outs = image_ba_phase("c3_images_sift_ba", c3s, c3i_run["n_frames"],
-                                                  "c3_sift_ba", None, device, timed_reps=1)
+    m, s_, rig, poses, obs, outs, _ = image_ba_phase("c3_images_sift_ba", c3s, c3i_run["n_frames"],
+                                                  "c3_sift_ba", None, device, timed_reps=0)
     launches["c3_images_sift_ba"] = (m, s_)
     kf = np.nonzero(outs.is_keyframe.cpu().numpy())[0]
     leg, m, s_, ate = pgo_phase(
@@ -2572,6 +2835,13 @@ def main() -> int:
             return 1
         print("chip_smoke: --calib-only run ends here, with no result line", flush=True)
         return 0
+    if sys.argv[1:] == ["--adaptive-only"]:  # phase 17 alone, on a workload of its own
+        adaptive_phase(device)
+        phase_done("17_adaptive")
+        if not no_descendants_left():
+            return 1
+        print("chip_smoke: --adaptive-only run ends here, with no result line", flush=True)
+        return 0
     if sys.argv[1:] == ["--dist-only"]:  # phases 12, 12b, 13 and 11's ranks alone
         c5_phase(device, {}, {})
         phase_done("12_c5")
@@ -2621,7 +2891,7 @@ def main() -> int:
           "(the preset's image pipeline runs in phase 7c)", flush=True)
     c3_f2f_m, c3_f2f_rig, c3_f2f_scene, c3_f2f_obs, c3_f2f_outs = replay_phase(
         "c3_sizes_observations", c3, c3_run["n_frames"], c3_run["n_landmarks"], 0.2, device,
-        timed_reps=1)
+        timed_reps=0)
     launches["c3_sizes_observations"] = c3_f2f_m
 
     # 5. the slice's main path: c2 with keyframed window BA, full width
@@ -2632,7 +2902,7 @@ def main() -> int:
     # 6. BA replay at c3's sizes
     c3_m, c3_s, c3_rig, c3_scene, c3_obs, c3_final, c3_outs = ba_replay_phase(
         "c3_sizes_ba_observations", c3, c3_run["n_frames"], c3_run["n_landmarks"], 0.02, device,
-        timed_reps=1, vs_f2f=False)
+        timed_reps=0, vs_f2f=False)
     launches.update(c2_ba_observations=c2_m, c3_sizes_ba_observations=c3_m)
 
     # 6c. c3's loop-closure leg on the BA replay, over its own keyframes
@@ -2665,8 +2935,8 @@ def main() -> int:
                                       device, timed_reps=1)
 
     # 7c. c3 image-native: window BA, then the loop leg over its keyframes
-    c3i_m, c3i_s, c3i_rig, c3i_poses, c3i_obs, c3i_outs = image_ba_phase(
-        "c3_images_ba", c3i, c3i_run["n_frames"], "c3_ba", None, device, timed_reps=1)
+    c3i_m, c3i_s, c3i_rig, c3i_poses, c3i_obs, c3i_outs, c3i_draws = image_ba_phase(
+        "c3_images_ba", c3i, c3i_run["n_frames"], "c3_ba", None, device, timed_reps=0)
     kf_c3i = np.nonzero(c3i_outs.is_keyframe.cpu().numpy())[0]
     leg_c3i, leg_c3i_m, leg_c3i_s, leg_c3i_ate = pgo_phase(
         "c3_images_pgo_leg", c3i, c3i_rig, c3i_poses, c3i_obs, c3i_outs.vo.T_world, kf_c3i,
@@ -2678,6 +2948,13 @@ def main() -> int:
           flush=True)
     build_system_repeats("c3_images_pgo_leg", leg_c3i.graph)
     launches.update(c2_ba_images=c2i_m, c3_images_ba=c3i_m, c3_images_pgo_leg=leg_c3i_m)
+    phase_done("2_7c")
+
+    # 17. c3_adaptive as written on 7c's workload: adaptive keyframes govern
+    # the BA window and the pose graph's nodes
+    adaptive_launches = adaptive_phase(device, (c3i_rig, c3i_poses, c3i_obs, c3i_draws))
+    launches.update({k: m for k, (m, _) in adaptive_launches.items()})
+    phase_done("17_adaptive")
 
     # 8. Schur kernel against its plain version
     c2_blocks = window_blocks(c2_rig, c2, c2_final.map)
@@ -2717,8 +2994,8 @@ def main() -> int:
 
     # 10. c4 as written: S=4 lanes in lockstep, frame to frame and window BA
     c4, c4_run = load_preset("c4_batched_replay")
-    c4_f2f_m, c4_f2f_s, *_ = batched_phase("f2f", c4, c4_run, device, 1, card)
-    c4_ba_m, c4_ba_s, c4_rig, c4_obs, c4_final = batched_phase("ba", c4, c4_run, device, 1, card)
+    c4_f2f_m, c4_f2f_s, *_ = batched_phase("f2f", c4, c4_run, device, 0, card)
+    c4_ba_m, c4_ba_s, c4_rig, c4_obs, c4_final = batched_phase("ba", c4, c4_run, device, 0, card)
     launches.update(c4_batched_f2f=c4_f2f_m, c4_batched_ba=c4_ba_m)
     # both kernels at c4's shapes: lane 0's stereo match of its first frame,
     # its map against the last keyframe, and its last window
@@ -2734,7 +3011,7 @@ def main() -> int:
     schur["c4_lane0_W5_L512"] = compare_schur("c4_lane0_late_window_W5_L512",
                                               window_blocks(c4_rig, c4, c4_lane0.map), lam)
 
-    phase_done("2_10")
+    phase_done("8_10")
 
     # Device events per kernel call, then phase 14, whose extractors are
     # profiled too: every profiler session of this process runs before the
@@ -2803,7 +3080,8 @@ def main() -> int:
          "replaces": "sosvo/kernels/match_pallas.py:162",
          "launches": c3i_m + leg_c3i_m + c4_f2f_m + c4_ba_m + c5_m["match"]
          + c3l["sharded_leg"]["match"] + sum(m for m, _ in desc_launches.values())
-         + sum(m for m, _ in seq_launches.values()),
+         + sum(m for m, _ in seq_launches.values())
+         + sum(m for m, _ in adaptive_launches.values()),
          "launches_by_path": launches,
          "max_abs_err": max(r["max_abs_err"] for r in (*results.values(), loop_match)),
          "ms": m_main["ms"], "plain_ms": m_main["plain_ms"], "bound_ms": m_main["bound_ms"],
@@ -2824,7 +3102,8 @@ def main() -> int:
          "replaces": "sosvo/kernels/schur_pallas.py:106",
          "launches": c3i_s + leg_c3i_s + c4_f2f_s + c4_ba_s + c5_m["schur"]
          + c3l["sharded_leg"]["schur"] + sum(s_ for _, s_ in desc_launches.values())
-         + sum(s_ for _, s_ in seq_launches.values()),
+         + sum(s_ for _, s_ in seq_launches.values())
+         + sum(s_ for _, s_ in adaptive_launches.values()),
          "launches_by_path": {"c2_ba_observations": c2_s, "c3_sizes_ba_observations": c3_s,
                               "c2_ba_dropout": drop_s, "c3_pgo_leg_ba": leg_ba_s,
                               "c3_pgo_leg_f2f": leg_f2f_s, "c2_ba_images": c2i_s,
@@ -2837,7 +3116,8 @@ def main() -> int:
                               "c3_long_mesh_ba": c3l["ba_replay"]["schur"],
                               "c3_long_mesh_ba_leg": c3l["ba_leg"]["schur"],
                               **{k: s_ for k, (_, s_) in desc_launches.items()},
-                              **{k: s_ for k, (_, s_) in seq_launches.items()}},
+                              **{k: s_ for k, (_, s_) in seq_launches.items()},
+                              **{k: s_ for k, (_, s_) in adaptive_launches.items()}},
          "max_abs_err": max(r["max_abs_err"] for r in (*schur.values(), loop_schur)),
          "ms": s_main["ms"], "plain_ms": s_main["plain_ms"], "bound_ms": s_main["bound_ms"],
          "bound_us": s_main["bound_ms"] * 1e3, "bound_by": s_main["bound_by"],

@@ -248,7 +248,8 @@ def make_mesh(ranks: Ranks, data: int = 1, model: int = 1) -> Mesh:
     return Mesh(data, model, ranks, axes)
 
 
-def single(device: torch.device | str = "cpu") -> Ranks:
+def single(device: torch.device | str | None = None) -> Ranks:
     """The ranks of one process with no group: every axis of a mesh over
-    it has size 1."""
-    return Ranks(0, 1, 0, torch.device(device), None)
+    it has size 1. Its device is the card unless `device` is the CPU
+    (`rank_device` of rank 0)."""
+    return Ranks(0, 1, 0, rank_device(device, 0), None)

@@ -1,6 +1,6 @@
 """Count the host<->device synchronisations of a replay on the card.
 
-    python -m sosvo_torch.tools.sync_check
+    python -m sosvo_torch.tools.sync_check [--adaptive-only]
 
 Runs each workload once to warm up, then once under
 `torch.cuda.set_sync_debug_mode("warn")`, and prints the number of
@@ -10,7 +10,10 @@ frames), and the keyframed window-BA replay of configs/c2_chip_ba.json in
 observation mode (its first 20 frames: 5 keyframes, 4 window solves), the same preset as written in
 image mode (`tools/workload.py:image_ba_replayer`: extraction of its first
 20 rendered frames, then the window-BA replay; the frontend is expected to
-add no sync), and c3's loop-closure leg (`tools/workload.py:pgo_leg`: 160 candidate pairs,
+add no sync), configs/c3_adaptive.json the same way (its first 20 frames,
+motion-adaptive keyframes: the trigger is read with the relocalisation
+predicate, so a tracked frame is expected to sync twice, as in stride
+mode; `--adaptive-only` counts this replay alone), and c3's loop-closure leg (`tools/workload.py:pgo_leg`: 160 candidate pairs,
 300 inliers, DCS) over a frame-to-frame replay at c3's sizes (K=2048,
 H=1024, 200 frames, 50 stride keyframes). The BA replay is expected to
 sync once per frame at the lazy gate, once per frame at the relocalisation
@@ -30,6 +33,7 @@ one, passes unflagged.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import warnings
@@ -92,9 +96,25 @@ def count_batched_syncs(device) -> None:
                         batched_replayer(cfg, rig, gt, obs, device, mode), n_frames)
 
 
+def count_adaptive_syncs(device, n_frames: int = 20) -> None:
+    """configs/c3_adaptive.json's image-mode window-BA replay over its first
+    `n_frames` rendered frames (module docstring)."""
+    cfg, _ = load_image_preset("c3_adaptive")
+    rig, poses, images, luts, _ = make_image_workload(cfg, n_frames, device)
+    count_syncs("c3_adaptive image-mode window-BA, adaptive keyframes",
+                image_ba_replayer(cfg, rig, poses, images, luts, device), n_frames)
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--adaptive-only", action="store_true",
+                    help="count configs/c3_adaptive.json's replay alone")
+    args = ap.parse_args()
     device = default_device()
     print(f"card: {card_info()}", flush=True)
+    if args.adaptive_only:
+        count_adaptive_syncs(device)
+        return
     cfg, run = load_preset("c1_cpu_smoke")
     rig, scene, obs = make_workload(cfg, run["n_frames"], run["n_landmarks"], device)
     count_syncs("c1 frame-to-frame", replayer(cfg, rig, scene, obs, device), run["n_frames"])
@@ -106,6 +126,7 @@ def main() -> None:
     rig, poses, images, luts, _ = make_image_workload(cfg, n_frames, device)
     count_syncs("c2 image-mode window-BA", image_ba_replayer(cfg, rig, poses, images, luts, device),
                 n_frames)
+    count_adaptive_syncs(device, n_frames)
     cfg, run = load_preset("c3_host_pgo")
     rig, scene, obs = make_workload(cfg, run["n_frames"], run["n_landmarks"], device)
     _, outs = replayer(cfg, rig, scene, obs, device)()

@@ -10,10 +10,13 @@ window. A lost frame is relocalised against the landmark map first.
 The reference's three `lax.cond`s become host `if`s:
   * keyframe or not, and BA or not (>= 2 keyframes): in stride mode both
     follow from the frame and keyframe counts, which the replay loop keeps
-    on the host, so they cost no device read. The adaptive trigger reads
-    its predicate back: one sync on each frame once a keyframe exists;
-  * relocalisation: once the map has a keyframe the host reads `pose_ok`,
-    one sync per frame, beside the lazy gate's one in `step_full`.
+    on the host, so they cost no device read. The adaptive trigger is a
+    device predicate the host must read once a keyframe exists;
+  * relocalisation: once the map has a keyframe the host reads `pose_ok`.
+  Both reads are one: the trigger is computed on the frame's tracked pose
+  and read with `pose_ok` in one `.tolist()`, one sync per frame beside the
+  lazy gate's one in `step_full`; only a frame that relocalises reads the
+  trigger again, on its new pose.
 Nothing inside `insert_keyframe` or `ba_solve` reads back from the device.
 The relocalisation RANSAC draws its (H, L) Gumbel matrix from the track's
 generator when it runs, unless the caller passes `StepDraws.gumbel_reloc`.
@@ -113,16 +116,23 @@ def relocalize_lanes(cfg: PipelineConfig, maps: MapState, track: TrackState, out
     return stack_lanes(tracks), stack_lanes(outs)
 
 
+def _adaptive_motion(m: MapState, track: TrackState, frame: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rig's translation (m) and rotation (rad) since the last keyframe,
+    and the frame gap to it: the adaptive trigger's inputs."""
+    h1 = m.head.reshape(1).long()
+    rel = m.kf_X.index_select(0, h1)[0] @ track.T_world      # last-rig <- now-rig
+    trans = norm(rel[:3, 3])
+    rot = geodesic_angle(rel[:3, :3], torch.eye(3, dtype=rel.dtype, device=rel.device))
+    return trans, rot, frame - m.kf_frame.index_select(0, h1)[0]
+
+
 def _adaptive_trigger(cfg: PipelineConfig, m: MapState, track: TrackState,
                       frame: int) -> torch.Tensor:
     """Motion-adaptive keyframe predicate (once the map has a keyframe):
     accumulated motion since the last keyframe crosses a translation or
     rotation threshold, or the gap reaches kf_max_gap."""
-    h1 = m.head.reshape(1).long()
-    rel = m.kf_X.index_select(0, h1)[0] @ track.T_world      # last-rig <- now-rig
-    trans = norm(rel[:3, 3])
-    rot = geodesic_angle(rel[:3, :3], torch.eye(3, dtype=rel.dtype, device=rel.device))
-    gap = frame - m.kf_frame.index_select(0, h1)[0]
+    trans, rot, gap = _adaptive_motion(m, track, frame)
     moved = (trans > cfg.kf_trans_thresh) | (rot > cfg.kf_rot_thresh)
     return (gap >= cfg.kf_min_gap) & (moved | (gap >= cfg.kf_max_gap))
 
@@ -158,18 +168,25 @@ def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track:
     (MapState -> (MapState, cost)) replaces the window solve. Returns the
     new state, the frame's output, and the new keyframe count."""
     device = track.T_world.device
-    tried = False
-    # The host reads pose_ok once the map can relocalise.
-    if cfg.relocalize and n_kf >= 1 and not bool(out.pose_ok):
+    adaptive = cfg.keyframe_mode == "adaptive"
+    # Once the map holds a keyframe the host reads pose_ok (relocalisation)
+    # and the adaptive trigger on the tracked pose, in one read.
+    ok, trigger = True, n_kf == 0
+    if n_kf >= 1:
+        reads = ([out.pose_ok] if cfg.relocalize else []) + \
+            ([_adaptive_trigger(cfg, state.map, track, frame)] if adaptive else [])
+        got = torch.stack(reads).tolist() if reads else []
+        ok = got[0] if cfg.relocalize else True
+        trigger = adaptive and got[-1]
+    tried = not ok
+    if tried:
         g = draws.gumbel_reloc if draws is not None and draws.gumbel_reloc is not None else \
             gumbel(track.generator, (cfg.ransac.n_hyps, cfg.ba.max_landmarks), device)
         track, out = try_relocalize(cfg, state.map, track, out, feats, g)
-        tried = True
+        if adaptive:  # a relocalised frame decides on its new pose
+            trigger = bool(_adaptive_trigger(cfg, state.map, track, frame))
 
-    if cfg.keyframe_mode == "adaptive":
-        is_kf = n_kf == 0 or bool(_adaptive_trigger(cfg, state.map, track, frame))
-    else:
-        is_kf = frame % cfg.keyframe_every == 0
+    is_kf = trigger if adaptive else frame % cfg.keyframe_every == 0
 
     m, T_w, cost = keyframe_stage(rig, cfg, state.map, track, feats, is_kf, n_kf, ba_fn=ba_fn)
     track = track._replace(T_world=T_w)

@@ -13,6 +13,7 @@ The command line over several ranks: tests/test_torch_dist_cli.py.
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +35,10 @@ from sosvo_torch.vo.state import StepOutput
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
+# The command line's own processes run on one thread, as this one does: on
+# the CPU the replays' positions move by ~1e-6 m with the intra-op and BLAS
+# thread count, so a process on more threads may write another log.
+ONE_THREAD = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
 F, K = 12, 256
 
 
@@ -116,10 +121,12 @@ def _fault_and_resume(tmp_path, extra):
             "--ckpt-every", "4", *extra]
     assert cli.main(args + ["--out", str(out_a)]) == 0
     base = [sys.executable, "-m", "sosvo_torch.cli", *args, "--out", str(out_b)]
-    r = subprocess.run(base + ["--fault-inject", "5"], capture_output=True, text=True, cwd=ROOT)
+    r = subprocess.run(base + ["--fault-inject", "5"], capture_output=True, text=True, cwd=ROOT,
+                       env=ONE_THREAD)
     assert r.returncode == 42, (r.returncode, r.stderr[-2000:])
     assert latest_step(out_b / "ckpt") == 8
-    r = subprocess.run(base + ["--resume"], capture_output=True, text=True, cwd=ROOT)
+    r = subprocess.run(base + ["--resume"], capture_output=True, text=True, cwd=ROOT,
+                       env=ONE_THREAD)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "resumed from checkpoint at frame 8" in r.stdout
     return out_a, out_b
@@ -142,6 +149,47 @@ def test_cli_fault_resume_pgo(tmp_path):
     assert rep_a["pgo_loops"] == rep_b["pgo_loops"]
     assert rep_a["ate_rmse_m"] == rep_b["ate_rmse_m"], (rep_a, rep_b)
     assert (out_a / "frames.jsonl").read_text() == (out_b / "frames.jsonl").read_text()
+
+
+def test_cli_fault_resume_adaptive_pgo(tmp_path):
+    """configs/c3_adaptive.json cut to size (observation mode, 24 frames,
+    K=H=L=128, 6 candidates, 10 inliers; its keyframe thresholds as
+    written) killed after frame 16 and resumed: the resumed run's PGO gets
+    the scan's adaptive keyframe set, whole. Its final keyframe flags
+    (`kf_*.npy`, the prefix read from the checkpoint and the flags it
+    replayed) equal the uninterrupted run's, cover every frame and are not
+    the stride set; the log is byte for byte the same, and so are the
+    report's loops and ATE."""
+    cfg = json.loads((ROOT / "configs/c3_adaptive.json").read_text())
+    cfg["run"].update(n_frames=24, n_landmarks=4096)
+    pipe = cfg["pipeline"]
+    pipe.update(mode="observations", frontend={"max_features": 128}, ransac={"n_hyps": 128},
+                ba={"window": 5, "max_landmarks": 128, "iters": 5}, loop_candidates=6,
+                loop_min_inliers=10)
+    path = tmp_path / "c3_adaptive_tiny.json"
+    path.write_text(json.dumps(cfg))
+    out_a, out_b = tmp_path / "full", tmp_path / "faulted"
+    args = ["--config", str(path), "--device", "cpu", "--ckpt-every", "8"]
+    assert cli.main(args + ["--out", str(out_a)]) == 0
+    base = [sys.executable, "-m", "sosvo_torch.cli", *args, "--out", str(out_b)]
+    r = subprocess.run(base + ["--fault-inject", "10"], capture_output=True, text=True, cwd=ROOT,
+                       env=ONE_THREAD)
+    assert r.returncode == 42, (r.returncode, r.stderr[-2000:])
+    assert latest_step(out_b / "ckpt") == 16
+    r = subprocess.run(base + ["--resume"], capture_output=True, text=True, cwd=ROOT,
+                       env=ONE_THREAD)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "resumed from checkpoint at frame 16" in r.stdout
+    flags_a, flags_b = (np.load(d / "ckpt" / "kf_00000024.npy") for d in (out_a, out_b))
+    np.testing.assert_array_equal(flags_b[:16], np.load(out_a / "ckpt" / "kf_00000016.npy"))
+    np.testing.assert_array_equal(flags_b, flags_a)
+    assert len(flags_a) == 24 and flags_a.sum() >= 2
+    assert not np.array_equal(np.nonzero(flags_a)[0], np.arange(0, 24, 4)), flags_a
+    rep_a = json.loads((out_a / "report.json").read_text())
+    rep_b = json.loads((out_b / "report.json").read_text())
+    assert (rep_a["pgo_loops"], rep_a["ate_rmse_m"]) == (rep_b["pgo_loops"], rep_b["ate_rmse_m"])
+    assert (out_a / "frames.jsonl").read_bytes() == (out_b / "frames.jsonl").read_bytes()
+    print(f"adaptive keyframes {np.nonzero(flags_a)[0].tolist()}, report {rep_b}")
 
 
 def test_cli_batched_runs_both_modes(tmp_path):

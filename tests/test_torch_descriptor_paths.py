@@ -21,6 +21,7 @@ SIFT at a small width (K=128, a 64x512 panorama, 16 px patches, H=128).
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -141,9 +142,13 @@ def test_cli_runs_sift_and_resumes(tmp_path):
     rep = json.loads((out_a / "report.json").read_text())
     assert rep["frames"] == 8 and rep["ate_rmse_m"] < 0.05, rep
     base = [sys.executable, "-m", "sosvo_torch.cli", *args, "--out", str(out_b)]
-    r = subprocess.run(base + ["--fault-inject", "5"], capture_output=True, text=True, cwd=ROOT)
+    # one thread, as this process: on the CPU positions move by ~1e-6 m
+    # with the intra-op and BLAS thread count
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    r = subprocess.run(base + ["--fault-inject", "5"], capture_output=True, text=True, cwd=ROOT,
+                       env=env)
     assert r.returncode == 42, (r.returncode, r.stderr[-2000:])
-    r = subprocess.run(base + ["--resume"], capture_output=True, text=True, cwd=ROOT)
+    r = subprocess.run(base + ["--resume"], capture_output=True, text=True, cwd=ROOT, env=env)
     assert r.returncode == 0, r.stderr[-2000:]
     assert (out_a / "frames.jsonl").read_text() == (out_b / "frames.jsonl").read_text()
     rep_b = json.loads((out_b / "report.json").read_text())

@@ -77,6 +77,20 @@ def test_entry_point_runs_on_the_cpu_when_asked(name):
     assert leaves and all(x.device.type == "cpu" for x in leaves)
 
 
+def test_single_rank_defaults_to_the_card(monkeypatch):
+    """`dist.mesh.single`, the one-process ranks a mesh is made over, takes
+    the card unless asked for the CPU, as `init_process_group` does."""
+    from sosvo_torch.dist import mesh
+
+    assert mesh.single("cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        mesh.single()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh.single().device == torch.device("cuda", 0)
+
+
 def test_default_device_is_cuda_when_a_card_is_present(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert default_device() == torch.device("cuda")

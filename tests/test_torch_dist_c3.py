@@ -102,7 +102,7 @@ def test_single_shard_is_the_single_device_leg(leg_inputs):
     x = leg_inputs
     T_1, n_1 = pgo_refine_trajectory(x["trig"], x["tcfg"], x["tobs"], x["tT"],
                                      gumbels=x["gumbels"], **KW)
-    one = mesh.make_mesh(mesh.single(), 1, 1)
+    one = mesh.make_mesh(mesh.single("cpu"), 1, 1)
     T_s, n_s = pgo_refine_trajectory_sharded(one, x["trig"], x["tcfg"], x["tobs"], x["tT"],
                                              gumbels=x["gumbels"], **KW)
     assert int(n_s) == int(n_1)

@@ -64,7 +64,7 @@ def test_world_1_is_the_identity():
 def test_backend_rule():
     assert mesh.choose_backend(torch.device("cpu"), 4)[0] == "gloo"
     with pytest.raises(ValueError):
-        mesh.make_mesh(mesh.single(), 2, 1)
+        mesh.make_mesh(mesh.single("cpu"), 2, 1)
 
 
 def test_failing_rank_fails_the_launch():
