@@ -25,6 +25,10 @@ axis: the costs, and per LM step H_cc, b_c, the gauge `coupling` and the
 Schur reduction's S_off and b_sub, all five in one buffer. Damping and the
 gauge prior are added after the sum, so once and alike on every rank; every
 accept/reject keys on a summed cost, so all ranks take the same branch.
+
+Spans (`utils/spans.py`): per LM iteration `ba.build` (the normal-equation
+blocks), `ba.schur` (gauge and Schur reduction) and `ba.solve` (the reduced
+solve, back-substitution and pose update), counted as `ba.lm_iters`.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from sosvo_torch.backend.schur import apply_pose_updates, assemble_camera_system, back_substitute
 from sosvo_torch.geom.lie import norm
 from sosvo_torch.kernels.schur_cuda import reduce_camera_system_cuda, schur_parts
+from sosvo_torch.utils import spans
 
 GAUGE_PRIOR = 1e8
 
@@ -155,43 +160,46 @@ def lm_step(win: BAWindow, lam: torch.Tensor, anchor: torch.Tensor | int = 0,
     """
     W = win.X.shape[0]
     dtype, device = win.X.dtype, win.X.device
-    H_cc, H_cl, H_ll, b_c, b_l, _ = build_blocks(win)
-    # Gauge support must agree on every rank: H_cl holds this shard only.
-    coupling = torch.sum(torch.abs(H_cl), dim=(1, 2, 3))
-    if axis is not None:
-        # This shard's Schur partials first (the kernel's S goes unused), then
-        # every landmark sum in one all-reduce.
-        parts = schur_parts(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc=False)
-        H_cc, b_c, coupling, S_off, b_sub = axis.psum(H_cc, b_c, coupling, parts.S_off,
-                                                      parts.b_sub)
+    with spans.span("ba.build"):
+        H_cc, H_cl, H_ll, b_c, b_l, _ = build_blocks(win)
+    with spans.span("ba.schur"):
+        # Gauge support must agree on every rank: H_cl holds this shard only.
+        coupling = torch.sum(torch.abs(H_cl), dim=(1, 2, 3))
+        if axis is not None:
+            # This shard's Schur partials first (the kernel's S goes unused), then
+            # every landmark sum in one all-reduce.
+            parts = schur_parts(H_cc, H_cl, H_ll, b_c, b_l, lam, damp_H_cc=False)
+            H_cc, b_c, coupling, S_off, b_sub = axis.psum(H_cc, b_c, coupling, parts.S_off,
+                                                          parts.b_sub)
 
-    eye6 = torch.eye(6, dtype=dtype, device=device)
-    one_hot = (torch.arange(W, device=device) == anchor).to(dtype)
-    # Damping and the gauge prior come after the sum: applied once.
-    H_cc = H_cc + lam * eye6[None]
-    # Gauge: clamp the anchor keyframe with a huge prior; unobserved pose
-    # slots (all-zero rows) get it too, so the reduced system stays regular.
-    row_support = torch.sum(torch.abs(b_c), dim=-1) + coupling
-    unobserved = (row_support == 0.0).to(dtype)
-    clamp = torch.maximum(one_hot, unobserved)
-    H_cc = H_cc + (GAUGE_PRIOR * clamp)[:, None, None] * eye6[None]
+        eye6 = torch.eye(6, dtype=dtype, device=device)
+        one_hot = (torch.arange(W, device=device) == anchor).to(dtype)
+        # Damping and the gauge prior come after the sum: applied once.
+        H_cc = H_cc + lam * eye6[None]
+        # Gauge: clamp the anchor keyframe with a huge prior; unobserved pose
+        # slots (all-zero rows) get it too, so the reduced system stays regular.
+        row_support = torch.sum(torch.abs(b_c), dim=-1) + coupling
+        unobserved = (row_support == 0.0).to(dtype)
+        clamp = torch.maximum(one_hot, unobserved)
+        H_cc = H_cc + (GAUGE_PRIOR * clamp)[:, None, None] * eye6[None]
 
-    if axis is None:
-        S, b_red, H_ll_inv = reduce_camera_system_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam,
-                                                       damp_H_cc=False)
-    else:
-        S, b_red = assemble_camera_system(H_cc, b_c, S_off, b_sub)
-        H_ll_inv = parts.H_ll_inv
+        if axis is None:
+            S, b_red, H_ll_inv = reduce_camera_system_cuda(H_cc, H_cl, H_ll, b_c, b_l, lam,
+                                                           damp_H_cc=False)
+        else:
+            S, b_red = assemble_camera_system(H_cc, b_c, S_off, b_sub)
+            H_ll_inv = parts.H_ll_inv
 
-    # Dense solve of the reduced (6W, 6W) camera system (cameras are few).
-    # `solve_ex` leaves its status on the device: no read-back.
-    S_flat = S.permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
-    sol = torch.linalg.solve_ex(S_flat, b_red.reshape(6 * W, 1))[0]
-    delta_c = -sol.reshape(W, 6) * (1.0 - clamp)[:, None]   # exact gauge clamp
+    with spans.span("ba.solve"):
+        # Dense solve of the reduced (6W, 6W) camera system (cameras are few).
+        # `solve_ex` leaves its status on the device: no read-back.
+        S_flat = S.permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
+        sol = torch.linalg.solve_ex(S_flat, b_red.reshape(6 * W, 1))[0]
+        delta_c = -sol.reshape(W, 6) * (1.0 - clamp)[:, None]   # exact gauge clamp
 
-    delta_l = back_substitute(H_ll_inv, H_cl, b_l, delta_c)
-    return win._replace(X=apply_pose_updates(win.X, delta_c),
-                        landmarks=win.landmarks + delta_l)
+        delta_l = back_substitute(H_ll_inv, H_cl, b_l, delta_c)
+        return win._replace(X=apply_pose_updates(win.X, delta_c),
+                            landmarks=win.landmarks + delta_l)
 
 
 def ba_solve(win: BAWindow, iters: int = 5, lam0: float = 1e-3,
@@ -208,6 +216,7 @@ def ba_solve(win: BAWindow, iters: int = 5, lam0: float = 1e-3,
     w, cost = win, cost0
     accepted = []
     for _ in range(iters):
+        spans.count("ba.lm_iters")
         if huber_delta is not None:
             # IRLS: freeze the Huber multipliers at the current state; the
             # candidate and the current state are compared under them.

@@ -13,6 +13,11 @@ and the keypoints lifted to rays and re-projected to raw pixels, into the
 same fixed-size `FrameObservations` the observation mode uses, so image
 mode shares every downstream stage (descriptors: int32 words, or (K, 128)
 f32 for SIFT).
+
+Spans (`utils/spans.py`): `frontend` per call of `extract_observations` or
+`extract_sequence`, and inside it `frontend.warp`, `frontend.detect`
+(smoothing, Harris, NMS, top-K), `frontend.describe` and `frontend.lift` per
+view (and octave).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from sosvo_torch.frontend.panorama import (PanoGeometry, build_pano_geometry, pa
 from sosvo_torch.sensor.model import ViewParams, project
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
+from sosvo_torch.utils import spans
 from sosvo_torch.utils.config import FrontendConfig
 
 
@@ -87,10 +93,12 @@ def _view_features(cfg: FrontendConfig, pano: torch.Tensor, view: ViewParams,
     for lvl in range(n):
         if lvl > 0:
             lvl_img = _halve(lvl_img)
-        smoothed = gaussian_smooth(lvl_img)
-        kps = detect(lvl_img, ks[lvl], **detect_args(cfg))
-        angles = orientation(smoothed, kps) if cfg.oriented else None
-        desc_l.append(describe_fn(lvl_img, kps, smoothed=smoothed, angles=angles))
+        with spans.span("frontend.detect"):
+            smoothed = gaussian_smooth(lvl_img)
+            kps = detect(lvl_img, ks[lvl], **detect_args(cfg))
+        with spans.span("frontend.describe"):
+            angles = orientation(smoothed, kps) if cfg.oriented else None
+            desc_l.append(describe_fn(lvl_img, kps, smoothed=smoothed, angles=angles))
         s = float(2 ** lvl)
         # Pooled cell i covers full-res [s*i, s*i + s), centred at s*i + (s-1)/2.
         rows_l.append(kps.rows * s + (s - 1.0) / 2.0)
@@ -110,33 +118,44 @@ def _akaze_view_features(cfg: FrontendConfig, pano: torch.Tensor, view: ViewPara
 
 def _lift(view: ViewParams, geom: PanoGeometry, rows, cols, desc, valid):
     """Keypoints at panorama (rows, cols) -> (uv, rays, desc, valid)."""
-    rays = pano_ray(geom.height, geom.width, geom.min_elevation, geom.max_elevation, rows, cols)
-    uv, _ = project(view, rays)
-    # Keypoints whose pano cell has no raw-image support are invalid; the
-    # cell index truncates toward zero, as the reference's int cast does.
-    lut_ok = geom.valid[rows.to(torch.int64), cols.to(torch.int64)]
-    return uv, rays, desc, valid & lut_ok
+    with spans.span("frontend.lift"):
+        rays = pano_ray(geom.height, geom.width, geom.min_elevation, geom.max_elevation, rows,
+                        cols)
+        uv, _ = project(view, rays)
+        # Keypoints whose pano cell has no raw-image support are invalid; the
+        # cell index truncates toward zero, as the reference's int cast does.
+        lut_ok = geom.valid[rows.to(torch.int64), cols.to(torch.int64)]
+        return uv, rays, desc, valid & lut_ok
 
 
-def extract_observations(rig: OmnistereoRig, luts: FrontendLUTs, cfg: FrontendConfig,
-                         image: torch.Tensor) -> FrameObservations:
-    """The full frontend for one raw omni image (on its device); fixed K
-    slots per view, `lm_id` all -1."""
+def _extract(rig: OmnistereoRig, luts: FrontendLUTs, cfg: FrontendConfig,
+             image: torch.Tensor) -> FrameObservations:
     if cfg.descriptor not in DESCRIPTORS:
         raise ValueError(f"unknown descriptor {cfg.descriptor!r}; one of {DESCRIPTORS}")
     view_features = _akaze_view_features if cfg.descriptor == "akaze" else _view_features
-    uv_t, ray_t, desc_t, ok_t = view_features(cfg, warp_panorama(image, luts.top), rig.top,
-                                              luts.top)
-    uv_b, ray_b, desc_b, ok_b = view_features(cfg, warp_panorama(image, luts.bottom),
-                                              rig.bottom, luts.bottom)
+    with spans.span("frontend.warp"):
+        pano_t = warp_panorama(image, luts.top)
+    uv_t, ray_t, desc_t, ok_t = view_features(cfg, pano_t, rig.top, luts.top)
+    with spans.span("frontend.warp"):
+        pano_b = warp_panorama(image, luts.bottom)
+    uv_b, ray_b, desc_b, ok_b = view_features(cfg, pano_b, rig.bottom, luts.bottom)
     return FrameObservations(
         uv_top=uv_t, uv_bottom=uv_b, ray_top=ray_t, ray_bottom=ray_b,
         desc_top=desc_t, desc_bottom=desc_b, valid_top=ok_t, valid_bottom=ok_b,
         lm_id=torch.full((cfg.max_features,), -1, dtype=torch.int32, device=image.device))
 
 
+def extract_observations(rig: OmnistereoRig, luts: FrontendLUTs, cfg: FrontendConfig,
+                         image: torch.Tensor) -> FrameObservations:
+    """The full frontend for one raw omni image (on its device); fixed K
+    slots per view, `lm_id` all -1."""
+    with spans.span("frontend"):
+        return _extract(rig, luts, cfg, image)
+
+
 def extract_sequence(rig: OmnistereoRig, luts: FrontendLUTs, cfg: FrontendConfig,
                      images: torch.Tensor) -> FrameObservations:
     """`extract_observations` of each of (F, H, W) images, stacked per frame."""
-    frames = [extract_observations(rig, luts, cfg, im) for im in images]
-    return FrameObservations(*(torch.stack(x) for x in zip(*frames)))
+    with spans.span("frontend"):
+        frames = [_extract(rig, luts, cfg, im) for im in images]
+        return FrameObservations(*(torch.stack(x) for x in zip(*frames)))

@@ -9,28 +9,27 @@ For bench.py's c1 workload (10 frames) and c3's sizes in observation mode
 warm-up replay:
   * frames/s of one unprofiled replay (host clock, synchronised);
   * device time: the sum of the profiler's device events (kernels, copies,
-    fills) over one profiled replay, and that sum's share of the unprofiled
-    replay's wall time (the device busy share; the rest is idle);
+    fills) over one profiled replay;
   * device events per frame;
-  * host ms per frame and per call of each pipeline stage (record_function
-    ranges);
+  * host ms per frame and per call of each pipeline stage: the spans the
+    pipeline records itself (`sosvo_torch/utils/spans.py`), over the
+    profiled replay;
 then the matcher's device time per call, kernel vs plain twin, at the
 stereo match of a c1 frame (K=512) and of a frame at c3's sizes (K=2048).
 
 With --ba the same for the keyframed window-BA replay instead: c2
 (configs/c2_chip_ba.json in observation mode, 60 frames) and c3's sizes
-(first 40 frames), with the BA stages (map association + insertion, window
-BA, relocalisation) labelled beside the frame step's, so a keyframe's BA
-can be set against the frame step; then the Schur kernel's device time per
-call against its plain version on a late c2 window (W=5, L=512).
+(first 40 frames), whose spans add the keyframe stage's (the read,
+relocalisation, map association + insertion, window BA and its LM
+iterations' parts) beside the frame step's; then the Schur kernel's device
+time per call against its plain version on a late c2 window (W=5, L=512).
 
 With --pgo, c3's loop-closure leg (`tools/workload.py:pgo_leg`: 160
 candidate pairs, 300 inliers, DCS) over the keyframes of a BA replay at
 c3's sizes (200 frames, 50 keyframes), as chip_smoke.py's phase 6c runs it:
-the leg's host-clock seconds unprofiled, its device time and device busy
-share, and host ms per call of its stages (keyframe stereo features,
-signatures + top-k, and per pair the match, the RANSAC and the two-frame
-BA, then the PGO solve).
+the leg's host-clock seconds unprofiled, its device time and events, and
+host ms per call of its spans (keyframe stereo features, candidates, the
+pairs with their two-frame BAs' LM parts, the PGO solve, the correction).
 
 With --images, the image-mode presets as written (configs/c2_chip_ba.json,
 60 frames, and configs/c3_host_pgo.json, its first 40 frames; rendered on
@@ -38,8 +37,8 @@ the card): the frontend alone (`extract_sequence` over the frames) and the
 image-mode BA replay (extraction, then the window-BA replay), each after a
 warm-up: host ms per frame of the extraction, unprofiled; the frontend's
 device events and device ms per frame and its share of the replay's device
-time; the replay's frames/s, device busy share and device events per
-frame, and its ATE and pose_ok with the port's own RANSAC generator.
+time; the replay's frames/s and device events per frame, and its ATE and
+pose_ok with the port's own RANSAC generator.
 `--descriptor brief sift akaze` runs them once per descriptor family
 (`frontend.descriptor` replaced in each preset; default brief).
 
@@ -47,8 +46,8 @@ With --batched, the c4 batched replay (configs/c4_batched_replay.json:
 K=512, H=512, 8192 landmarks, W=5, L=512, a keyframe every 4 frames) frame
 to frame and with window BA at S = 1, 2, 4 and 8 lanes, after a warm-up:
 frames/s summed over the lanes, host ms per frame and each lane's ATE of
-one unprofiled replay of the preset's 100 frames; device busy share and
-device events per frame of its first 20 frames
+one unprofiled replay of the preset's 100 frames; device time and device
+events per frame of its first 20 frames
 (`workload.BATCHED_PROFILED_FRAMES`), timed unprofiled and then profiled
 with device activity only (the profiler's host-side events at S=8 over
 100 frames take it many minutes to read).
@@ -81,11 +80,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import time
+from collections import defaultdict
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from sosvo_torch.frontend.match import match_stats
 from sosvo_torch.kernels import match_cuda
@@ -108,51 +107,41 @@ from sosvo_torch.tools.workload import (
     make_workload,
     replayer,
 )
+from sosvo_torch.utils import spans
 from sosvo_torch.utils.device import default_device
-from sosvo_torch.vo import ba_pipeline, pipeline
-
-STAGES = {"stereo_triangulate": "stereo match + triangulate", "ransac_rigid": "rigid RANSAC",
-          "refine_pose_bearings": "refine", "_gate_check": "essential gate"}
-PGO_STAGES = {"_kf_features": "loop: keyframe stereo features",
-              "keyframe_signatures": "loop: signatures + top-k",
-              "select_loop_candidates": "loop: signatures + top-k",
-              "_match": "loop: pair match", "ransac_rigid": "loop: pair RANSAC",
-              "ba_solve": "loop: pair two-frame BA",
-              "pgo_solve": "pgo: solve (10 GN iterations)"}
-BA_STAGES = {"step_full": "frame step (frame to frame)",
-             "insert_keyframe": "keyframe: map association + insertion",
-             "run_window_ba": "keyframe: window BA", "try_relocalize": "relocalisation"}
-
-
-def _label(module, stages: dict) -> None:
-    for name, label in stages.items():
-        f = getattr(module, name)
-
-        def wrapped(*a, _f=f, _label=label, **k):
-            with record_function(f"stage: {_label}"):
-                return _f(*a, **k)
-        setattr(module, name, functools.wraps(f)(wrapped))
-
-
-def _label_stages() -> None:
-    """Wrap the pipeline's stage functions in named profiler ranges."""
-    _label(pipeline, STAGES)
-    _label(ba_pipeline, BA_STAGES)
-    match = pipeline._match
-
-    def temporal_or_stereo(cfg, *a, **k):
-        if k.get("band", 0.0) > 0.0:  # the stereo match, inside its own stage
-            return match(cfg, *a, **k)
-        with record_function("stage: temporal match"):
-            return match(cfg, *a, **k)
-    pipeline._match = temporal_or_stereo
+from sosvo_torch.vo import pipeline
 
 
 def _device_events(prof) -> list:
-    """The profiler's device events: kernels, copies and fills, without the
-    device-side copies of the record_function ranges, which span whole stages."""
+    """The profiler's device events: kernels, copies and fills."""
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and not e.name.startswith("stage: ")]
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _profiled_with_spans(fn):
+    """One call of `fn` under the profiler (device activity) with the
+    pipeline's spans on -> (profile, {span name: (calls, host ns)})."""
+    spans.reset()
+    spans.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        spans.disable()
+    by_name: dict[str, list[int]] = defaultdict(lambda: [0, 0])
+    for s in spans.spans():
+        by_name[s.name][0] += 1
+        by_name[s.name][1] += s.end_ns - s.start_ns
+    spans.reset()
+    return prof, by_name
+
+
+def _print_spans(by_name: dict, n_frames: int | None = None) -> None:
+    for name, (calls, ns) in sorted(by_name.items()):
+        per_frame = "" if n_frames is None else f"ms_per_frame={ns / 1e6 / n_frames} "
+        print(f"  host {name}: calls={calls} ms_total={ns / 1e6} {per_frame}"
+              f"ms_per_call={ns / 1e6 / calls}", flush=True)
 
 
 def profile_replay(label: str, preset: str, n_frames: int | None, device,
@@ -167,20 +156,13 @@ def profile_replay(label: str, preset: str, n_frames: int | None, device,
     replay()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        replay()
-        torch.cuda.synchronize()
+    prof, by_name = _profiled_with_spans(replay)
     dev = _device_events(prof)
     dev_s = sum(e.time_range.elapsed_us() for e in dev) / 1e6
     print(f"{label}: K={cfg.frontend.max_features} H={cfg.ransac.n_hyps} frames={n_frames} "
           f"frames_per_s_unprofiled={n_frames / wall} wall_s={wall} device_s={dev_s} "
-          f"device_busy_share={dev_s / wall} device_events_per_frame={len(dev) / n_frames}",
-          flush=True)
-    for e in sorted(prof.key_averages(), key=lambda e: e.key):
-        if e.key.startswith("stage: ") and e.device_type == torch.autograd.DeviceType.CPU:
-            print(f"  host {e.key[7:]}: calls={e.count} "
-                  f"ms_per_frame={e.cpu_time_total / 1e3 / n_frames} "
-                  f"ms_per_call={e.cpu_time_total / 1e3 / e.count}", flush=True)
+          f"device_events_per_frame={len(dev) / n_frames}", flush=True)
+    _print_spans(by_name, n_frames)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
                                     max_name_column_width=50), flush=True)
 
@@ -189,9 +171,7 @@ def profile_pgo(device) -> None:
     """c3's loop-closure leg over a BA replay at c3's sizes (see the module
     docstring): one warm-up leg, one timed, one profiled."""
     from sosvo_torch.tools import workload
-    from sosvo_torch.vo import loop_closure
 
-    _label(loop_closure, PGO_STAGES)
     cfg, run = load_preset("c3_host_pgo")
     rig, scene, obs = make_workload(cfg, run["n_frames"], run["n_landmarks"], device)
     _, outs = ba_replayer(cfg, rig, scene, obs, device)()
@@ -206,18 +186,13 @@ def profile_pgo(device) -> None:
     out = leg()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        leg()
-        torch.cuda.synchronize()
+    prof, by_name = _profiled_with_spans(leg)
     dev = _device_events(prof)
     dev_s = sum(e.time_range.elapsed_us() for e in dev) / 1e6
     print(f"c3 loop-closure leg over the BA replay: keyframes={len(kf_idx)} "
           f"candidates={cfg.loop_candidates} n_loops={int(out.n_loops)} leg_s_unprofiled={wall} "
-          f"device_s={dev_s} device_busy_share={dev_s / wall} device_events={len(dev)}", flush=True)
-    for e in sorted(prof.key_averages(), key=lambda e: e.key):
-        if e.key.startswith("stage: ") and e.device_type == torch.autograd.DeviceType.CPU:
-            print(f"  host {e.key[7:]}: calls={e.count} ms_total={e.cpu_time_total / 1e3} "
-                  f"ms_per_call={e.cpu_time_total / 1e3 / e.count}", flush=True)
+          f"device_s={dev_s} device_events={len(dev)}", flush=True)
+    _print_spans(by_name)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
                                     max_name_column_width=50), flush=True)
 
@@ -274,8 +249,7 @@ def profile_batched(device) -> None:
                   f"{n_lanes * n / wall} host_ms_per_frame={1e3 * wall / n} wall_s={wall} "
                   f"ATE_per_lane_m={ates} pose_ok={int(vo.pose_ok[:, 1:].sum())}/"
                   f"{n_lanes * (n - 1)}; first {n_profiled} frames: wall_s={wall_short} "
-                  f"device_s={dev_s} device_busy_share={dev_s / wall_short} "
-                  f"device_events_per_frame={len(dev) / n_profiled} "
+                  f"device_s={dev_s} device_events_per_frame={len(dev) / n_profiled} "
                   f"device_events_per_lane_frame={len(dev) / (n_profiled * n_lanes)}", flush=True)
 
 
@@ -301,7 +275,7 @@ def profile_images(device, descriptor: str = "brief") -> None:
               f"device_ms_per_frame={1e3 * fe_dev / n} device_events_per_frame={fe_events / n} "
               f"share_of_replay_device_time={fe_dev / dev_s} replay (extraction included): "
               f"frames_per_s_unprofiled={n / wall} wall_s={wall} device_s={dev_s} "
-              f"device_busy_share={dev_s / wall} device_events_per_frame={events / n} "
+              f"device_events_per_frame={events / n} "
               f"ATE_m={ate} pose_ok={int(outs.vo.pose_ok[1:].sum())}/{n - 1} (the port's "
               f"generator)", flush=True)
 
@@ -610,7 +584,6 @@ def main() -> None:
     if args.batched:
         profile_batched(device)
         return
-    _label_stages()
     if args.ba:
         profile_replay("c2 window BA, observation mode", "c2_chip_ba", None, device, ba=True)
         profile_replay("c3 sizes window BA, observation mode, first 40 frames", "c3_host_pgo", 40,

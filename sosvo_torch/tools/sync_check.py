@@ -28,7 +28,9 @@ to sync once per frame at the batch gate and, in BA mode, once more at the
 batch relocalisation predicate once the maps hold a keyframe, plus once at
 the start, whatever S is (never per lane). The debug mode is PyTorch's own and does
 not see every sync: a blocking host->device copy of a Python list, for
-one, passes unflagged.
+one, passes unflagged. Beside each count it prints the pipeline's own
+`sync.<site>` counters (`sosvo_torch/utils/spans.py`) over the same run,
+which should add up to it.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from sosvo_torch.tools.workload import (
     pgo_leg,
     replayer,
 )
+from sosvo_torch.utils import spans
 from sosvo_torch.utils.device import default_device
 from sosvo_torch.vo.loop_closure import keyframe_indices
 
@@ -77,12 +80,23 @@ def count_syncs(label: str, replay, n_frames: int, unit: str = "frame") -> None:
     `unit` (n_frames of them), by source line."""
     replay()
     torch.cuda.synchronize()
-    _, syncs = syncs_during(replay)
+    spans.reset()
+    spans.enable()
+    try:
+        _, syncs = syncs_during(replay)
+    finally:
+        spans.disable()
+    counted = collections.Counter()
+    for s in spans.spans():
+        counted.update({k: n for k, n in s.counts.items() if k.startswith("sync.")})
+    spans.reset()
     where = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
     print(f"syncs in one {label} run ({n_frames} {unit}s): {len(syncs)} "
           f"({len(syncs) / n_frames} per {unit})", flush=True)
     for loc, n in where.most_common():
         print(f"  {n} at {loc}", flush=True)
+    print(f"  the pipeline's counters: {sum(counted.values())} {dict(sorted(counted.items()))}",
+          flush=True)
 
 
 def count_batched_syncs(device) -> None:

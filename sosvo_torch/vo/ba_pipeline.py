@@ -25,6 +25,13 @@ every lane's `pose_ok`, then `try_relocalize` for the lost lanes only.
 Map association and relocalisation match with the descriptor family's
 metric and threshold (`frontend.match.metric_params`): Hamming for BRIEF
 and AKAZE, L2 for SIFT, whose map holds float descriptors.
+
+Spans (`utils/spans.py`): `replay` per `run_replay_ba` (its first read
+counted as `sync.replay_start`) and `frame` (`frame=`) per frame in it;
+`keyframe` (`frame=`) per `step_ba_post`, and inside it `keyframe.read`
+(`sync.keyframe_read`), `keyframe.reloc` (`reloc.tried`, and
+`sync.reloc_trigger` where a relocalised frame reads its trigger again),
+`keyframe.insert` (`keyframes`) and `keyframe.window_ba`.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from sosvo_torch.geom.lie import geodesic_angle, mat_inv, norm
 from sosvo_torch.geometry.ransac import gumbel, ransac_rigid
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
+from sosvo_torch.utils import spans
 from sosvo_torch.utils.config import PipelineConfig
 from sosvo_torch.utils.device import resolve
 from sosvo_torch.vo.keyframes import MapState, init_map_state, insert_keyframe, run_window_ba
@@ -150,12 +158,16 @@ def keyframe_stage(rig: OmnistereoRig, cfg: PipelineConfig, m: MapState, track: 
     if not is_kf:
         return m, track.T_world, cost
     metric, max_distance = metric_params(cfg.frontend)
-    m = (insert_fn or insert_keyframe)(m, track.T_world, feats, track.frame_idx - 1,
-                                       max_new=cfg.ba.max_new, match_max_distance=max_distance,
-                                       match_ratio=cfg.frontend.match_ratio, metric=metric)
+    with spans.span("keyframe.insert"):
+        spans.count("keyframes")
+        m = (insert_fn or insert_keyframe)(m, track.T_world, feats, track.frame_idx - 1,
+                                           max_new=cfg.ba.max_new,
+                                           match_max_distance=max_distance,
+                                           match_ratio=cfg.frontend.match_ratio, metric=metric)
     if n_kf + 1 >= 2:  # BA once the window holds two keyframes
-        m, cost = ba_fn(m) if ba_fn is not None else \
-            run_window_ba(rig, m, iters=cfg.ba.iters, huber_delta=cfg.ba.huber_delta)
+        with spans.span("keyframe.window_ba"):
+            m, cost = ba_fn(m) if ba_fn is not None else \
+                run_window_ba(rig, m, iters=cfg.ba.iters, huber_delta=cfg.ba.huber_delta)
     return m, mat_inv(m.kf_X.index_select(0, m.head.reshape(1).long())[0]), cost
 
 
@@ -167,24 +179,37 @@ def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track:
     `n_kf` (keyframes inserted before it) are the host's counters; `ba_fn`
     (MapState -> (MapState, cost)) replaces the window solve. Returns the
     new state, the frame's output, and the new keyframe count."""
+    with spans.span("keyframe", frame=frame):
+        return _step_ba_post(rig, cfg, state, track, out, feats, frame, n_kf, draws, ba_fn)
+
+
+def _step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track: TrackState,
+                  out: StepOutput, feats: KeyframeFeatures, frame: int, n_kf: int,
+                  draws: StepDraws | None, ba_fn) -> tuple[BAState, BAStepOutput, int]:
     device = track.T_world.device
     adaptive = cfg.keyframe_mode == "adaptive"
     # Once the map holds a keyframe the host reads pose_ok (relocalisation)
     # and the adaptive trigger on the tracked pose, in one read.
     ok, trigger = True, n_kf == 0
     if n_kf >= 1:
-        reads = ([out.pose_ok] if cfg.relocalize else []) + \
-            ([_adaptive_trigger(cfg, state.map, track, frame)] if adaptive else [])
-        got = torch.stack(reads).tolist() if reads else []
+        with spans.span("keyframe.read"):
+            reads = ([out.pose_ok] if cfg.relocalize else []) + \
+                ([_adaptive_trigger(cfg, state.map, track, frame)] if adaptive else [])
+            if reads:
+                spans.count("sync.keyframe_read")
+            got = torch.stack(reads).tolist() if reads else []
         ok = got[0] if cfg.relocalize else True
         trigger = adaptive and got[-1]
     tried = not ok
     if tried:
-        g = draws.gumbel_reloc if draws is not None and draws.gumbel_reloc is not None else \
-            gumbel(track.generator, (cfg.ransac.n_hyps, cfg.ba.max_landmarks), device)
-        track, out = try_relocalize(cfg, state.map, track, out, feats, g)
-        if adaptive:  # a relocalised frame decides on its new pose
-            trigger = bool(_adaptive_trigger(cfg, state.map, track, frame))
+        with spans.span("keyframe.reloc"):
+            spans.count("reloc.tried")
+            g = draws.gumbel_reloc if draws is not None and draws.gumbel_reloc is not None else \
+                gumbel(track.generator, (cfg.ransac.n_hyps, cfg.ba.max_landmarks), device)
+            track, out = try_relocalize(cfg, state.map, track, out, feats, g)
+            if adaptive:  # a relocalised frame decides on its new pose
+                spans.count("sync.reloc_trigger")
+                trigger = bool(_adaptive_trigger(cfg, state.map, track, frame))
 
     is_kf = trigger if adaptive else frame % cfg.keyframe_every == 0
 
@@ -215,12 +240,17 @@ def run_replay_ba(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState,
     (MapState -> (MapState, cost)) replaces every window solve, as the JAX
     package's `ba_fn` does (the landmark-sharded solve of
     `sosvo_torch/dist/replay_dist.py` is one)."""
-    frame0, n_kf = torch.stack([state.track.frame_idx, state.map.n_kf]).tolist()  # one read
-    outs = []
-    for f in range(obs_seq.desc_top.shape[0]):
-        d = None if draws is None else draws.frame(f)
-        state, out, n_kf = step_ba(rig, cfg, state, obs_seq.frame(f), frame0 + f, n_kf, d, ba_fn)
-        outs.append(out)
-    vo = StepOutput(*(torch.stack(x) for x in zip(*(o.vo for o in outs))))
-    rest = (torch.stack(x) for x in list(zip(*outs))[1:])
-    return state, BAStepOutput(vo, *rest)
+    n_frames = obs_seq.desc_top.shape[0]
+    with spans.span("replay"):
+        spans.count("sync.replay_start")
+        frame0, n_kf = torch.stack([state.track.frame_idx, state.map.n_kf]).tolist()  # one read
+        outs = []
+        for f in range(n_frames):
+            d = None if draws is None else draws.frame(f)
+            with spans.span("frame", frame=frame0 + f):
+                state, out, n_kf = step_ba(rig, cfg, state, obs_seq.frame(f), frame0 + f, n_kf,
+                                           d, ba_fn)
+            outs.append(out)
+        vo = StepOutput(*(torch.stack(x) for x in zip(*(o.vo for o in outs))))
+        rest = (torch.stack(x) for x in list(zip(*outs))[1:])
+        return state, BAStepOutput(vo, *rest)

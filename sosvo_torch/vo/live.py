@@ -18,6 +18,13 @@ Random draws: a `torch.Generator` (the replays' and the command line's
 stream; seeded 0 where neither it nor a key is given), or `key`, a JAX key
 pair (`tools/reference_draws.py:prng_key`), for the JAX package's own draws
 frame after frame, so a live run compares with the JAX package's.
+
+Spans (`utils/spans.py`): the request span `live.frame` (`frame=idx`)
+from when a frame is taken off the stream to when its output is yielded;
+`frame` (`frame=idx`) around its upload (`live.upload`, whose wait for a
+buffer's last copy counts as `sync.live_upload`), its draws (`live.draws`,
+with a key) and its step; `live.wait` (`sync.live_wait`) around the wait
+for its event.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from sosvo_torch.frontend.image_frontend import FrontendLUTs, build_frontend_luts
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.tools.reference_draws import Key, frame_draws
+from sosvo_torch.utils import spans
 from sosvo_torch.utils.config import PipelineConfig
 from sosvo_torch.utils.device import resolve
 from sosvo_torch.vo.ba_pipeline import BAStepOutput, init_ba_state
@@ -56,6 +64,7 @@ class _Uploader:
         if self.bufs[i] is None or tuple(self.bufs[i].shape) != arr.shape:
             self.bufs[i] = torch.empty(arr.shape, dtype=torch.float32, pin_memory=True)
         elif self.copied[i] is not None:
+            spans.count("sync.live_upload")
             self.copied[i].synchronize()
         self.bufs[i].numpy()[...] = arr
         img = self.bufs[i].to(self.device, non_blocking=True)
@@ -93,17 +102,24 @@ def _live(step, frames: Iterable, device: torch.device, on_frame) -> Iterator[tu
     def finish(p):
         idx, out, done = p
         if done is not None:
-            done.synchronize()
+            with spans.span("live.wait", frame=idx):
+                spans.count("sync.live_wait")
+                done.synchronize()
         if on_frame is not None:
             on_frame(idx, out)
+        spans.end("live.frame", idx)
         return idx, out
 
     for idx, frame in enumerate(frames):
-        out = step(idx, upload(frame))
-        done = None
-        if device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
+        spans.begin("live.frame", idx)
+        with spans.span("frame", frame=idx):
+            with spans.span("live.upload"):
+                img = upload(frame)
+            out = step(idx, img)
+            done = None
+            if device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
         if pending is not None:
             yield finish(pending)
         pending = (idx, out, done)
@@ -127,7 +143,9 @@ def live_vo(rig: OmnistereoRig, cfg: PipelineConfig, frames: Iterable[np.ndarray
 
     def step(idx, img):
         nonlocal state
-        state, out = image_step(rig, luts, cfg, state, img, draws())
+        with spans.span("live.draws"):
+            d = draws()
+        state, out = image_step(rig, luts, cfg, state, img, d)
         return out
     yield from _live(step, frames, device, on_frame)
 
@@ -151,6 +169,8 @@ def live_vo_ba(rig: OmnistereoRig, cfg: PipelineConfig, frames: Iterable[np.ndar
 
     def step(idx, img):
         nonlocal state, n_kf
-        state, out, n_kf = image_step_ba(rig, luts, cfg, state, img, idx, n_kf, draws())
+        with spans.span("live.draws"):
+            d = draws()
+        state, out, n_kf = image_step_ba(rig, luts, cfg, state, img, idx, n_kf, d)
         return out
     yield from _live(step, frames, device, on_frame)

@@ -23,6 +23,13 @@ Differences from the reference:
     seeded 17 on the tensors' device) draws one pair's matrix at a time,
     unless the caller passes the matrices (a test passes the reference's).
   * No `jax.jit(leg)` closure per call: the leg runs eagerly.
+
+Spans (`utils/spans.py`): `loop_leg` per `close_loops`, and inside it
+`loop_leg.features` (the keyframes' stereo features),
+`loop_leg.candidates` (signatures and the prescreen), `loop_leg.pairs`
+(`loop.pairs_tried`), `loop_leg.pgo` and `loop_leg.correct`; the leg's host
+reads are counted as `sync.leg_keyframes`, `sync.leg_pairs` and
+`sync.leg_correct`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from sosvo_torch.geometry.ransac import gumbel, ransac_rigid
 from sosvo_torch.sensor.model import viewpoint
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
+from sosvo_torch.utils import spans
 from sosvo_torch.utils.config import PipelineConfig
 from sosvo_torch.vo.pipeline import _match, stereo_triangulate
 from sosvo_torch.vo.state import KeyframeFeatures
@@ -141,6 +149,7 @@ def loop_edges_for_pairs(rig: OmnistereoRig, cfg: PipelineConfig, feats: Keyfram
     Pair p draws its (H, K) Gumbel matrix from `generator` (H =
     cfg.ransac.n_hyps), or takes `gumbels[p]`."""
     device = feats.pts_rig.device
+    spans.count("loop.pairs_tried", pi.shape[0])
     if generator is None and gumbels is None:
         generator = torch.Generator(device=device).manual_seed(LOOP_SEED)
     a_all = KeyframeFeatures(*(x[pi] for x in feats))
@@ -173,17 +182,22 @@ def detect_loops(rig: OmnistereoRig, cfg: PipelineConfig, obs_kf: FrameObservati
     the pose graph's edge convention. `max_candidates=M` switches from all
     pairs to the signature prescreen (`select_loop_candidates`); the
     prescreen's padding slots are evaluated and get w = 0."""
-    feats = _kf_features(rig, cfg, obs_kf)
+    with spans.span("loop_leg.features"):
+        feats = _kf_features(rig, cfg, obs_kf)
     device = feats.pts_rig.device
-    if max_candidates is None:
-        pi_np, pj_np = loop_pairs(obs_kf.desc_top.shape[0], min_gap)
-        pi = torch.as_tensor(pi_np, dtype=torch.int64).to(device)
-        pj = torch.as_tensor(pj_np, dtype=torch.int64).to(device)
-        pair_ok = None
-    else:
-        sig = keyframe_signatures(feats.desc, feats.valid)
-        pi, pj, pair_ok = select_loop_candidates(sig, min_gap, max_candidates)
-    T_meas, w = loop_edges_for_pairs(rig, cfg, feats, pi, pj, min_inliers, generator, gumbels)
+    with spans.span("loop_leg.candidates"):
+        if max_candidates is None:
+            pi_np, pj_np = loop_pairs(obs_kf.desc_top.shape[0], min_gap)
+            spans.count("sync.leg_pairs", 2)
+            pi = torch.as_tensor(pi_np, dtype=torch.int64).to(device)
+            pj = torch.as_tensor(pj_np, dtype=torch.int64).to(device)
+            pair_ok = None
+        else:
+            sig = keyframe_signatures(feats.desc, feats.valid)
+            pi, pj, pair_ok = select_loop_candidates(sig, min_gap, max_candidates)
+    with spans.span("loop_leg.pairs"):
+        T_meas, w = loop_edges_for_pairs(rig, cfg, feats, pi, pj, min_inliers, generator,
+                                         gumbels)
     if pair_ok is not None:
         w = w * pair_ok.to(w.dtype)
     return pj, pi, T_meas, w
@@ -199,6 +213,7 @@ def loop_closure_graph(rig: OmnistereoRig, cfg: PipelineConfig, obs_seq: FrameOb
     odometry edges between consecutive keyframes from the VO estimates and
     the detected loop edges; n_loops, the accepted loop count, stays on the
     device."""
+    spans.count("sync.leg_keyframes")
     kf = torch.as_tensor(np.asarray(kf_idx), dtype=torch.int64).to(T_world_seq.device)
     X_kf = mat_inv(T_world_seq[kf])
     valid = torch.ones((kf.shape[0],), dtype=torch.bool, device=kf.device)
@@ -216,6 +231,7 @@ def correct_trajectory(T_world_seq: torch.Tensor, kf_idx: np.ndarray,
     keyframes' old world-from-rig poses to the optimised rig-from-world X_kf."""
     n_frames = T_world_seq.shape[0]
     device = T_world_seq.device
+    spans.count("sync.leg_correct", 2)
     kf = torch.as_tensor(np.asarray(kf_idx), dtype=torch.int64).to(device)
     gov = torch.as_tensor(governing_map(n_frames, kf_idx), dtype=torch.int64).to(device)
     corr = mat_inv(X_kf) @ mat_inv(T_world_seq[kf])
@@ -237,12 +253,17 @@ def close_loops(rig: OmnistereoRig, cfg: PipelineConfig, obs_seq: FrameObservati
                 gumbels: Sequence[torch.Tensor] | None = None) -> LoopClosure:
     """`pgo_refine_trajectory` with the pose graph and its solve kept beside
     the corrected poses and the loop count."""
-    if kf_idx is None:
-        kf_idx = keyframe_indices(T_world_seq.shape[0], cfg.keyframe_every)
-    g, n_loops = loop_closure_graph(rig, cfg, obs_seq, T_world_seq, kf_idx, min_gap,
-                                    min_inliers, odom_weight, max_candidates, generator, gumbels)
-    res = pgo_solve(g, iters=iters, robust=robust, robust_delta=robust_delta)
-    return LoopClosure(correct_trajectory(T_world_seq, kf_idx, res.X), n_loops, g, res)
+    with spans.span("loop_leg"):
+        if kf_idx is None:
+            kf_idx = keyframe_indices(T_world_seq.shape[0], cfg.keyframe_every)
+        g, n_loops = loop_closure_graph(rig, cfg, obs_seq, T_world_seq, kf_idx, min_gap,
+                                        min_inliers, odom_weight, max_candidates, generator,
+                                        gumbels)
+        with spans.span("loop_leg.pgo"):
+            res = pgo_solve(g, iters=iters, robust=robust, robust_delta=robust_delta)
+        with spans.span("loop_leg.correct"):
+            T_corrected = correct_trajectory(T_world_seq, kf_idx, res.X)
+        return LoopClosure(T_corrected, n_loops, g, res)
 
 
 def pgo_refine_trajectory(rig: OmnistereoRig, cfg: PipelineConfig, obs_seq: FrameObservations,

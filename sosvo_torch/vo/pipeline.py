@@ -24,6 +24,12 @@ configured descriptor family (`frontend.match.metric_params`): binary words
 (BRIEF, AKAZE's M-LDB) through `sosvo_torch.kernels.match_cuda.
 match_hamming`, the CUDA kernel for CUDA tensors and its plain twin on CPU;
 float SIFT descriptors through the plain L2 matcher `match_l2`.
+
+Spans (`utils/spans.py`): `step` per `step_full`, and inside it
+`step.stereo`, `step.temporal`, `step.rigid` (the draw and the RANSAC),
+`step.refine` and `step.gate` (the predicate's read, counted as
+`sync.gate`, and the essential RANSAC when it runs, counted as
+`gate.fired`).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from sosvo_torch.kernels.match_cuda import match_metric
 from sosvo_torch.sensor.model import viewpoint
 from sosvo_torch.sensor.rig import OmnistereoRig
 from sosvo_torch.synth.scene import FrameObservations
+from sosvo_torch.utils import spans
 from sosvo_torch.utils.config import PipelineConfig
 from sosvo_torch.vo.state import KeyframeFeatures, StepOutput, TrackState
 
@@ -118,25 +125,35 @@ def step_full(rig: OmnistereoRig, cfg: PipelineConfig, state: TrackState,
     `defer_gate=True` skips the essential gate as if the frame were
     consistent and appends its `GateCtx` to the return; the caller must run
     `apply_deferred_gate` before the next step consumes the state."""
+    with spans.span("step"):
+        return _step_full(rig, cfg, state, obs, draws, defer_gate)
+
+
+def _step_full(rig: OmnistereoRig, cfg: PipelineConfig, state: TrackState,
+               obs: FrameObservations, draws: StepDraws | None, defer_gate: bool):
     k = obs.desc_top.shape[0]
     h = cfg.ransac.n_hyps
     device = obs.ray_top.device
 
-    pts, desc, rays, az, valid, ray_b = stereo_triangulate(rig, obs, cfg)
+    with spans.span("step.stereo"):
+        pts, desc, rays, az, valid, ray_b = stereo_triangulate(rig, obs, cfg)
     n_stereo = torch.sum(valid, dtype=torch.int32)
 
-    tm = _match(cfg, state.prev_desc, desc, state.prev_valid, valid)
-    pts_curr_m = pts[tm.idx_b]
-    rays_curr_m = rays[tm.idx_b]
-    pair_valid = tm.valid & state.prev_valid & valid[tm.idx_b]
+    with spans.span("step.temporal"):
+        tm = _match(cfg, state.prev_desc, desc, state.prev_valid, valid)
+        pts_curr_m = pts[tm.idx_b]
+        rays_curr_m = rays[tm.idx_b]
+        pair_valid = tm.valid & state.prev_valid & valid[tm.idx_b]
     n_temporal = torch.sum(pair_valid, dtype=torch.int32)
 
-    g_rigid = gumbel(state.generator, (h, k), device) if draws is None else draws.gumbel_rigid
-    rr = ransac_rigid(g_rigid, state.prev_points, pts_curr_m, pair_valid, rays_curr_m,
-                      angle_threshold=cfg.ransac.rigid_angle_threshold,
-                      min_inliers=cfg.ransac.min_inliers)
-    T_cp = refine_pose_bearings(rr.model, state.prev_points, rays_curr_m,
-                                rr.inliers.to(torch.float32), iters=cfg.refine_iters)
+    with spans.span("step.rigid"):
+        g_rigid = gumbel(state.generator, (h, k), device) if draws is None else draws.gumbel_rigid
+        rr = ransac_rigid(g_rigid, state.prev_points, pts_curr_m, pair_valid, rays_curr_m,
+                          angle_threshold=cfg.ransac.rigid_angle_threshold,
+                          min_inliers=cfg.ransac.min_inliers)
+    with spans.span("step.refine"):
+        T_cp = refine_pose_bearings(rr.model, state.prev_points, rays_curr_m,
+                                    rr.inliers.to(torch.float32), iters=cfg.refine_iters)
 
     ess_consistent = torch.ones((), dtype=torch.bool, device=device)
     ess_angle = torch.zeros((), dtype=torch.float32, device=device)
@@ -146,11 +163,18 @@ def step_full(rig: OmnistereoRig, cfg: PipelineConfig, state: TrackState,
         ctx = GateCtx(need=need, prev_rays=state.prev_rays, rays_curr=rays_curr_m,
                       pair_valid=pair_valid, R_rigid=T_cp[:3, :3])
     elif cfg.use_essential_gate:
-        # The host reads the predicate: one device->host sync per frame.
-        if not cfg.lazy_essential_gate or bool(need):
-            g_ess = gumbel(state.generator, (h, k), device) if draws is None else draws.gumbel_ess
-            ess_consistent, ess_angle = _gate_check(cfg, g_ess, state.prev_rays, rays_curr_m,
-                                                    pair_valid, T_cp[:3, :3])
+        with spans.span("step.gate"):
+            # The host reads the predicate: one device->host sync per frame.
+            fire = True
+            if cfg.lazy_essential_gate:
+                spans.count("sync.gate")
+                fire = bool(need)
+            if fire:
+                spans.count("gate.fired")
+                g_ess = gumbel(state.generator, (h, k), device) if draws is None else \
+                    draws.gumbel_ess
+                ess_consistent, ess_angle = _gate_check(cfg, g_ess, state.prev_rays, rays_curr_m,
+                                                        pair_valid, T_cp[:3, :3])
 
     pose_ok = rr.ok & ess_consistent
     # On failure hold the pose (identity relative motion).
