@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 from vobench import correct, drivers, inputs as inputs_mod
-from vobench.harness import load_json
+from vobench.harness import load_driver, load_json
 from vobench.program import Program
 
 
@@ -51,7 +51,7 @@ def main(argv=None) -> int:
         runs = {}
         for c in chosen:
             traffic = load_json(root / "vobench" / "traffic" / f"{c['traffic']}.json")
-            cls = drivers.DRIVERS[traffic["driver"]]
+            cls = load_driver(root, traffic["driver"])
             d = cls(program, inp, config)
             d.warm(traffic["warm_frames"])
             t = time.perf_counter()

@@ -20,10 +20,17 @@ to back; the harness stops taking outputs when the window ends, and counts
 the frames whose output arrived inside it. The card's copy of the frames is
 let go before the window.
 
-A driver's `inp` is the inputs as it holds them, its `reference_draws` the
+A driver is built as `Driver(program, inputs, config)`. Its `inp` is the
+inputs as it holds them, its `reference_draws(inputs, config, device)` the
 draws the reference replays with in its place (None: the reference draws
-from `inputs.generators`, as the program did), and `LEG` whether its passes
-run the loop leg where the configuration has one.
+from `inputs.generators`, as the program did), `LEG` whether its passes run
+the loop leg where the configuration has one, `warm(n_frames)` its warm-up
+on the cell's own shapes, `window(seconds, on_start)` the measured window
+(a `Window`), and `one_pass()` one whole pass or session (a `PassOut`).
+
+`replay` and `live` are `DRIVERS` here. Traffic that needs another driver
+brings it as a new file, `vobench/traffic/<driver>.py`, whose `Driver`
+class keeps this contract (`harness.load_driver`).
 """
 
 from __future__ import annotations

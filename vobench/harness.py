@@ -1,11 +1,24 @@
 """One run of one cell: set-up, warm-up, the measured window, the trace,
 the check against the reference, and the result line.
 
-Everything a cell is made of is found by name under the checkout's root:
-the cell in `BENCHMARK.json`, its configuration in
-`vobench/configs/<config>.json`, its traffic in `vobench/traffic/<traffic>.json`,
-its limits in `vobench/limits/<cell>.json` and each metric's reader in
-`vobench/metrics/<metric>.py`. A new cell or metric is new files and entries.
+Everything a cell is made of is found by name under the checkout's root,
+so a new cell or metric is new files and entries, and no file of the
+benchmark is edited for it:
+
+  BENCHMARK.json                      the cell's entry, its configuration's
+                                      and each new metric's
+  vobench/configs/<config>.json       the configuration
+  vobench/traffic/<traffic>.json      the traffic mix, which names its driver
+  vobench/traffic/<driver>.py         a driver that is neither `replay` nor
+                                      `live` (`drivers.py`): its `Driver` class
+  vobench/limits/<cell>.json          the limits of the check (`correct.py`)
+  vobench/metrics/<metric>.py         each metric's reader
+  vobench/reference/frontend/families/<descriptor>.py
+  vobench/reference/vo/keyframe_modes/<keyframe_mode>.py
+                                      the reference's part for a descriptor
+                                      family or keyframe mode that the
+                                      configuration picks and the reference
+                                      does not have yet (`reference/lookup.py`)
 """
 
 from __future__ import annotations
@@ -13,6 +26,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import sys
 import time
 import warnings
@@ -48,12 +62,33 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
-def load_reader(root: Path, name: str):
-    path = root / "vobench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"vobench_metric_{name.replace('.', '_')}", path)
+def _load_file(path: Path, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reader(root: Path, name: str):
+    return _load_file(root / "vobench" / "metrics" / f"{name}.py",
+                      f"vobench_metric_{name.replace('.', '_')}")
+
+
+def load_driver(root: Path, name: str):
+    """The driver class that a traffic file names: `replay` and `live` are
+    `drivers.py`'s, any other is the `Driver` class of
+    `vobench/traffic/<name>.py`, which keeps their contract (`drivers.py`).
+    A name with no file raises a ValueError that names the file to add."""
+    if name in drivers.DRIVERS:
+        return drivers.DRIVERS[name]
+    file = f"vobench/traffic/{name}.py"
+    if not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}", name):
+        raise ValueError(f"no traffic driver {name!r}: a driver's name is a name of the "
+                         "benchmark, letters, digits, '_', '.' and '-'")
+    path = Path(root) / file
+    if not path.is_file():
+        raise ValueError(f"no traffic driver {name!r}: add {file}, with a `Driver` class")
+    return _load_file(path, f"vobench_driver_{name.replace('.', '_')}").Driver
 
 
 def cell_metrics(bench: dict, cell: str, kind: str) -> list[dict]:
@@ -111,7 +146,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, traced: bool,
 
     # Set-up: the inputs from the seed, the program's objects, the warm-up.
     marks = {"imported": time.perf_counter()}
-    driver_cls = drivers.DRIVERS[traffic["driver"]]
+    driver_cls = load_driver(root, traffic["driver"])
     inp = inputs_mod.make_inputs(config, seed, device)
     marks["inputs"] = time.perf_counter()
     program = Program(config_path, config["assumed"], device)

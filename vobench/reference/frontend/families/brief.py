@@ -1,13 +1,17 @@
-"""Binary descriptors: BRIEF-style 256-bit intensity-pair comparisons
-(counterpart of `sosvo/frontend/descriptor.py`).
+"""The descriptor family "brief": Harris corners and BRIEF-style 256-bit
+intensity-pair comparisons (counterpart of `sosvo/frontend/descriptor.py`
+and of the BRIEF path of `sosvo/frontend/image_frontend.py`).
 
-A fixed random pattern of point pairs in a patch (numpy `default_rng(7)`,
+Per view, the K slots are split over `n_scales` pyramid octaves, each
+detected (Harris, NMS, a fixed top-K) and described on its own level. A
+fixed random pattern of point pairs in a patch (numpy `default_rng(7)`,
 the reference's pattern) is sampled around each keypoint on the smoothed
 panorama, one gather for all K x 256 x 2 samples; columns wrap (azimuth),
 rows clamp, sample positions round half to even. Optional steering
 (rBRIEF): the pattern is rotated by each keypoint's intensity-centroid
 angle. Bits are packed 32 to a word, as int32 bit patterns (the reference
-packs uint32 words; the port's matcher takes the same bits as int32).
+packs uint32 words; the port's matcher takes the same bits as int32), and
+are matched by Hamming distance under `match_max_distance`.
 """
 
 from __future__ import annotations
@@ -17,7 +21,10 @@ import functools
 import numpy as np
 import torch
 
-from vobench.reference.frontend.detect import Keypoints, gaussian_smooth
+from vobench.reference.frontend.detect import Keypoints, detect, gaussian_smooth
+from vobench.reference.frontend.image_frontend import _halve, _lift, detect_args
+from vobench.reference.frontend.panorama import PanoGeometry
+from vobench.reference.sensor.model import ViewParams
 from vobench.reference.synth.scene import as_int32_bits
 
 NBITS = 256
@@ -99,3 +106,33 @@ def describe(pano: torch.Tensor, kps: Keypoints, smoothed: torch.Tensor | None =
     words = torch.sum(bits.reshape(bits.shape[0], WORDS, 32) << shifts, dim=-1)
     return as_int32_bits(words)
 
+
+def metric_params(fe) -> tuple[str, float]:
+    """(metric, max_distance): Hamming words under `match_max_distance`."""
+    return "hamming", fe.match_max_distance
+
+
+def view_features(cfg, pano: torch.Tensor, view: ViewParams, geom: PanoGeometry):
+    """(uv, rays, desc, valid) of one warped panorama: the K slots split over
+    `n_scales` octaves, each detected and described on its own level, its
+    coordinates mapped back to full resolution (centre of the pooled cell)."""
+    if cfg.detector != "harris":
+        raise ValueError(f"the reference detects Harris corners only, not {cfg.detector!r}")
+    k, n = cfg.max_features, cfg.n_scales
+    ks = [k - (n - 1) * (k // n)] + [k // n] * (n - 1)
+    rows_l, cols_l, ok_l, desc_l = [], [], [], []
+    lvl_img = pano
+    for lvl in range(n):
+        if lvl > 0:
+            lvl_img = _halve(lvl_img)
+        smoothed = gaussian_smooth(lvl_img)
+        kps = detect(lvl_img, ks[lvl], **detect_args(cfg))
+        angles = orientation(smoothed, kps) if cfg.oriented else None
+        desc_l.append(describe(lvl_img, kps, smoothed=smoothed, angles=angles))
+        s = float(2 ** lvl)
+        # Pooled cell i covers full-res [s*i, s*i + s), centred at s*i + (s-1)/2.
+        rows_l.append(kps.rows * s + (s - 1.0) / 2.0)
+        cols_l.append(kps.cols * s + (s - 1.0) / 2.0)
+        ok_l.append(kps.valid)
+    return _lift(view, geom, torch.cat(rows_l), torch.cat(cols_l), torch.cat(desc_l),
+                 torch.cat(ok_l))

@@ -12,8 +12,8 @@ exact in f32 (integers up to 256). Invalid rows/columns and pairs outside the
 stereo azimuth band get an additive +BIG, in the reference's order
 (d + pen_row + pen_col, then the band term), so the two implementations
 agree bit for bit. `metric_params` says which matcher and threshold a
-frontend configuration's descriptor family takes: BRIEF's, Hamming, the
-only family here.
+frontend configuration's descriptor family takes, as the family's module
+(`frontend/families/<descriptor>.py`) states them.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from vobench.reference.frontend.families import family
 
 NBITS = 256
 WORDS = NBITS // 32
@@ -77,9 +79,7 @@ def column_band_penalty(cols_a: torch.Tensor, cols_b: torch.Tensor, max_delta: f
 def metric_params(fe) -> tuple[str, float]:
     """(metric, max_distance) of a FrontendConfig's descriptor family: every
     stage that matches descriptors routes through it."""
-    if fe.descriptor != "brief":
-        raise ValueError(f"the reference matches BRIEF words only, not {fe.descriptor!r}")
-    return "hamming", fe.match_max_distance
+    return family(fe.descriptor).metric_params(fe)
 
 
 def _pen(valid: torch.Tensor) -> torch.Tensor:

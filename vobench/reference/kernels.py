@@ -2,9 +2,11 @@
 
 These take the place of the program's two CUDA kernels and their wrappers.
 The Hamming statistics are `frontend.match.match_stats` (an exact integer
-distance matrix), the Schur reduction is `inv3x3` of the damped landmark
-blocks followed by `schur_terms` and `assemble_camera_system`, as their
-contracts define them. Nothing here launches a hand-written kernel.
+distance matrix); a descriptor family whose words are not Hamming words
+gives its own plain matcher (`frontend/families/`). The Schur reduction is
+`inv3x3` of the damped landmark blocks followed by `schur_terms` and
+`assemble_camera_system`, as their contracts define them. Nothing here
+launches a hand-written kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from vobench.reference.backend.schur import assemble_camera_system, inv3x3, schur_terms
+from vobench.reference.frontend.families import family
 from vobench.reference.frontend.match import MatchResult, match_from_stats, match_stats
 
 
@@ -29,10 +32,15 @@ def match_metric(metric: str, desc_a: torch.Tensor, desc_b: torch.Tensor,
                  valid_a: torch.Tensor, valid_b: torch.Tensor, max_distance: float,
                  ratio: float, az_a: torch.Tensor | None = None,
                  az_b: torch.Tensor | None = None, band: float = 0.0) -> MatchResult:
-    """Ratio-tested, cross-checked matching of Hamming words through the
-    plain statistics."""
+    """Ratio-tested, cross-checked matching with the metric of
+    `frontend.match.metric_params`: "hamming" through the plain Hamming
+    statistics, any other through the plain matcher of the descriptor family
+    of that name."""
     if metric != "hamming":
-        raise ValueError(f"the reference matches Hamming words only, not {metric!r}")
+        match = getattr(family(metric), "match", None)
+        if match is None:
+            raise ValueError(f"the descriptor family {metric!r} gives no plain `match`")
+        return match(desc_a, desc_b, valid_a, valid_b, max_distance, ratio, az_a, az_b, band)
     stats = match_stats(desc_a, desc_b, valid_a, valid_b, az_a, az_b, band)
     return match_from_stats(stats, valid_a, max_distance, ratio)
 

@@ -9,9 +9,10 @@ Schur-complement LM BA; the current pose is re-read from the refined
 window. A lost frame is relocalised against the landmark map first.
 
 The reference's three `lax.cond`s become host `if`s:
-  * keyframe or not, and BA or not (>= 2 keyframes): with stride keyframes,
-    the only schedule here, both follow from the frame and keyframe
-    counts, which the replay loop keeps on the host;
+  * keyframe or not, and BA or not (>= 2 keyframes): the keyframe mode's
+    predicate (`vo/keyframe_modes/<cfg.keyframe_mode>.py`) answers on the
+    host, and the keyframe count, which the replay loop keeps on the host,
+    says whether BA runs;
   * relocalisation: once the map has a keyframe the host reads `pose_ok`.
 Nothing inside `insert_keyframe` or `ba_solve` reads back from the device.
 The relocalisation RANSAC draws its (H, L) Gumbel matrix from the track's
@@ -33,6 +34,7 @@ from vobench.reference.sensor.rig import OmnistereoRig
 from vobench.reference.synth.scene import FrameObservations
 from vobench.reference.utils.config import PipelineConfig
 from vobench.reference.utils.device import resolve
+from vobench.reference.vo.keyframe_modes import mode
 from vobench.reference.vo.keyframes import MapState, init_map_state, insert_keyframe, run_window_ba
 from vobench.reference.vo.pipeline import StepDraws, _match, step_full
 from vobench.reference.vo.state import KeyframeFeatures, StepOutput, TrackState, init_track_state
@@ -111,8 +113,7 @@ def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track:
     frame-to-frame step is done. `frame` (the index of that frame) and
     `n_kf` (keyframes inserted before it) are the host's counters. Returns
     the new state, the frame's output, and the new keyframe count."""
-    if cfg.keyframe_mode != "stride":
-        raise ValueError(f"the reference keys frames by stride only, not {cfg.keyframe_mode!r}")
+    keyframe_mode = mode(cfg.keyframe_mode)
     device = track.T_world.device
     # Once the map holds a keyframe the host reads pose_ok (relocalisation).
     ok = True
@@ -124,7 +125,7 @@ def step_ba_post(rig: OmnistereoRig, cfg: PipelineConfig, state: BAState, track:
             gumbel(track.generator, (cfg.ransac.n_hyps, cfg.ba.max_landmarks), device)
         track, out = try_relocalize(cfg, state.map, track, out, feats, g)
 
-    is_kf = frame % cfg.keyframe_every == 0
+    is_kf = bool(keyframe_mode.is_keyframe(cfg, state.map, track, frame))
 
     m, T_w, cost = keyframe_stage(rig, cfg, state.map, track, feats, is_kf, n_kf)
     track = track._replace(T_world=T_w)

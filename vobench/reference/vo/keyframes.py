@@ -16,7 +16,7 @@ semantics are kept on purpose:
   * the "claimed" scatter has duplicate indices: `scatter_reduce("amax")`,
     as `.at[].max()`, not an indexed assignment.
 The map association is an L x K match with the caller's metric
-(`frontend.match.metric_params`): Hamming, through the plain matcher of
+(`frontend.match.metric_params`), through the plain matcher of
 `reference/kernels.py`.
 """
 

@@ -13,8 +13,8 @@ Differences from the reference, all forced by eager PyTorch:
     drawn from the state's generator when the step needs it, unless the
     caller passes `StepDraws`.
 Every match goes through `_match`, which takes the metric of the
-configured descriptor family (`frontend.match.metric_params`): BRIEF's
-Hamming words through the plain matcher of `reference/kernels.py`.
+configured descriptor family (`frontend.match.metric_params`), through
+the plain matcher of `reference/kernels.py`.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 the check must catch, the trace reduction, and the run's refusals.
 
 The made-up cells live in a temporary checkout root assembled from
-`vobench/tests/data` (configurations, traffic, a made-up metric) and copies
-of the real readers; no file of the benchmark is edited. `run_cell` is
+`vobench/tests/data` (configurations, traffic, a made-up metric, a made-up
+driver) and copies of the real readers; no file of the benchmark is edited. `run_cell` is
 driven directly, past `run.py`'s look for a card, on CPU tensors.
 """
 
@@ -38,8 +38,9 @@ def root(tmp_path_factory) -> Path:
         (r / "vobench" / sub).mkdir(parents=True)
     for name in ("tiny_c2", "tiny_c3"):
         shutil.copy(DATA / f"{name}.json", r / "vobench" / "configs")
-    for name in ("tiny_replay", "tiny_live"):
+    for name in ("tiny_replay", "tiny_live", "tiny_replay_copy"):
         shutil.copy(DATA / f"{name}.json", r / "vobench" / "traffic")
+    shutil.copy(DATA / "replay_copy.py", r / "vobench" / "traffic")
     shutil.copy(DATA / "frames_in_window.py", r / "vobench" / "metrics")
     for name in READERS:
         shutil.copy(REPO / "vobench" / "metrics" / f"{name}.py", r / "vobench" / "metrics")
@@ -49,7 +50,9 @@ def root(tmp_path_factory) -> Path:
         "workloads": [
             {"name": "t2.replay", "config": "tiny_c2", "traffic": "tiny_replay", "chips": 1},
             {"name": "t3.replay-pgo", "config": "tiny_c3", "traffic": "tiny_replay", "chips": 1},
-            {"name": "t3.live", "config": "tiny_c3", "traffic": "tiny_live", "chips": 1}],
+            {"name": "t3.live", "config": "tiny_c3", "traffic": "tiny_live", "chips": 1},
+            {"name": "t2.replay-copy", "config": "tiny_c2", "traffic": "tiny_replay_copy",
+             "chips": 1}],
         "end_to_end": [{"name": "frames_per_s", "unit": "frames/s"},
                        {"name": "setup_s", "unit": "s"}],
         "per_layer": [{"name": "frames_in_window", "unit": "frames"},
@@ -60,7 +63,7 @@ def root(tmp_path_factory) -> Path:
                       {"name": "live_latency_p95_ms", "unit": "ms", "workloads": ["t3.live"]}]}
     (r / "BENCHMARK.json").write_text(json.dumps(bench))
     for cell, limits in (("t2.replay", LIMITS), ("t3.replay-pgo", LEG_LIMITS),
-                         ("t3.live", LIMITS)):
+                         ("t3.live", LIMITS), ("t2.replay-copy", LIMITS)):
         (r / "vobench" / "limits" / f"{cell}.json").write_text(json.dumps({"numbers": limits}))
     return r
 
@@ -87,6 +90,21 @@ def test_made_up_cell_runs_from_test_only_files(root, cell, traced, expect):
     assert expect <= set(line["metrics"]), err
     assert line["attempted"] > 0 and line["failed"] == 0
     assert err.strip().splitlines()[-1].startswith("check ")
+
+
+def test_a_driver_added_as_a_new_file_is_found_by_name(root):
+    assert harness.load_driver(root, "replay_copy").__name__ == "Driver"
+    line, err = _run(root, "t2.replay-copy", seconds=8.0)
+    assert line["correct"] is True, err
+    assert line["attempted"] > 0 and line["failed"] == 0
+    assert set(line["metrics"]) == {"frames_per_s", "setup_s"}
+
+
+def test_a_driver_with_no_file_names_the_file_to_add(root):
+    with pytest.raises(ValueError, match="add vobench/traffic/nope.py"):
+        harness.load_driver(root, "nope")
+    with pytest.raises(ValueError, match="name"):
+        harness.load_driver(root, "../replay_copy")
 
 
 def test_replay_with_leg_is_correct(root):

@@ -1,19 +1,29 @@
-"""The plain reference against the program's plain path, and its isolation.
+"""The plain reference against the program's plain path, against its own
+saved outputs, its parts looked up by name, and its isolation.
 
 On CPU tensors the program runs its kernels' plain twins, so at a small size
 the frozen reference and the program must give the same trajectory, pose_ok
-and loops on the same frames and draws.
+and loops on the same frames and draws. The saved outputs
+(`data/reference_<case>.pt`) were written by the reference before its
+descriptor family and keyframe mode were modules looked up by name; the
+reference must still give them bit for bit.
 """
 
+import importlib
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 from vobench import correct, drivers, inputs
 from vobench.program import Program
+from vobench.reference.frontend import families, match
+from vobench.reference.utils.config import FrontendConfig
+from vobench.reference.vo import keyframe_modes
 
 torch.set_num_threads(1)
 
@@ -59,3 +69,67 @@ def test_reference_imports_neither_jax_nor_either_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+# case: (configuration in data/, seed, driver whose draws the reference takes)
+SAVED = {"tiny_c2": ("tiny_c2", 2**31 + 5, None), "tiny_c3": ("tiny_c3", 9, None),
+         "tiny_live": ("tiny_c3", 2**31 + 9, drivers.Live)}
+
+
+def _reference(path: Path, seed: int, driver=None):
+    config = json.loads(path.read_text())
+    inp = inputs.make_inputs(config, seed, CPU)
+    kw = {} if driver is None else {"draws": driver.reference_draws(inp, config, CPU),
+                                    "leg": driver.LEG}
+    return correct.reference_run(path, config, inp, CPU, **kw)
+
+
+def _assert_saved(ref, case: str):
+    saved = torch.load(DATA / f"reference_{case}.pt")
+    assert {k for k, v in ref._asdict().items() if v is not None} == set(saved)
+    for k, v in saved.items():
+        assert torch.equal(getattr(ref, k), v), k
+
+
+@pytest.mark.parametrize("case", sorted(SAVED))
+def test_reference_equals_its_saved_outputs(case):
+    name, seed, driver = SAVED[case]
+    _assert_saved(_reference(DATA / f"{name}.json", seed, driver), case)
+
+
+@pytest.mark.parametrize("package,key,built_in", [
+    (families, ("frontend", "descriptor"), "brief"),
+    (keyframe_modes, ("keyframe_mode",), "stride"),
+])
+def test_a_part_added_as_a_new_file_is_found_by_name(tmp_path, monkeypatch, package, key,
+                                                     built_in):
+    """A renamed copy of a built-in part, on the package's path from a
+    directory of its own, is picked by a configuration that names it, and
+    gives the built-in's outputs."""
+    name = f"{built_in}_copy"
+    shutil.copy(Path(package.__file__).parent / f"{built_in}.py", tmp_path / f"{name}.py")
+    monkeypatch.setattr(package, "__path__", [*package.__path__, str(tmp_path)])
+    importlib.invalidate_caches()
+    config = json.loads((DATA / "tiny_c2.json").read_text())
+    block = config["pipeline"]
+    for k in key[:-1]:
+        block = block[k]
+    block[key[-1]] = name
+    path = tmp_path / "tiny_c2.json"
+    path.write_text(json.dumps(config))
+    try:
+        ref = _reference(path, *SAVED["tiny_c2"][1:])
+        assert f"{package.__name__}.{name}" in sys.modules
+    finally:
+        sys.modules.pop(f"{package.__name__}.{name}", None)
+    _assert_saved(ref, "tiny_c2")
+
+
+@pytest.mark.parametrize("look_up,file", [
+    (lambda: match.metric_params(FrontendConfig(descriptor="akaze")),
+     "vobench/reference/frontend/families/akaze.py"),
+    (lambda: keyframe_modes.mode("adaptive"), "vobench/reference/vo/keyframe_modes/adaptive.py"),
+])
+def test_an_option_with_no_module_names_the_file_to_add(look_up, file):
+    with pytest.raises(ValueError, match=f"add {file}"):
+        look_up()
